@@ -33,3 +33,8 @@ def tiny_batch(cfg, rng, B=2, S=16):
         batch["frames"] = jnp.asarray(
             rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_frontend)), jnp.float32)
     return batch
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips on a CPU-only machine)")
