@@ -7,11 +7,13 @@ first use, never at import, into `build/` at the repository root (or
 `$REPRO_TORCH_BUILD_DIR`); the library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and a stale library is
 never loaded. `build_all()` compiles every source at once, one `nvcc` per
-source, in parallel.
+source, in parallel. `Counts` is the launch bookkeeping every kernel's
+wrapper keeps.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -25,6 +27,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+
+
+@dataclasses.dataclass
+class Counts:
+    """One kernel's plain-integer call counters: `launches` goes up by one
+    where its wrapper launches the CUDA kernel (and nowhere else),
+    `plain_calls` where the dispatcher routes a CPU tensor to its plain
+    version. A run resets them, drives the path, and reads them to show
+    which route it took."""
+    launches: int = 0
+    plain_calls: int = 0
+
+    def reset(self) -> None:
+        self.launches = self.plain_calls = 0
+
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 

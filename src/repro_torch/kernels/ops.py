@@ -4,20 +4,31 @@ device.
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written Hopper kernel, or raises (a build or launch
 failure is an error, never a quiet fall-back to the plain version).
-`counts` shows which route a run took: `counts.launches` counts kernel
-launches, `counts.plain_calls` plain-version calls.
+`counts[name]` shows which route a run took for kernel `name`: its
+`launches` count kernel launches, its `plain_calls` plain-version calls.
+Each kernel keeps its own pair; `reset_counts()` zeroes them all.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels.sparse_ffn import (counts,
-                                            sparse_ffn_segments_fused_cuda,
-                                            sparse_ffn_segments_fused_plain)
+from repro_torch.kernels import paged_decode, sparse_ffn
+from repro_torch.kernels.build import Counts
 
-__all__ = ["counts", "sparse_ffn_segments_fused"]
+__all__ = ["counts", "reset_counts", "sparse_ffn_segments_fused",
+           "paged_decode_attention"]
+
+counts: Dict[str, Counts] = {
+    "sparse_ffn_segments_fused": sparse_ffn.counts,
+    "paged_decode": paged_decode.counts,
+}
+
+
+def reset_counts() -> None:
+    for c in counts.values():
+        c.reset()
 
 
 def sparse_ffn_segments_fused(
@@ -39,13 +50,34 @@ def sparse_ffn_segments_fused(
     covered-but-not-activated neurons — exact for relu/relu2/gelu/silu since
     act(0) == 0. Entries of -1 in `seg_ids` are padding and contribute 0."""
     if x.device.type == "cpu":
-        counts.plain_calls += 1
-        return sparse_ffn_segments_fused_plain(
+        sparse_ffn.counts.plain_calls += 1
+        return sparse_ffn.sparse_ffn_segments_fused_plain(
             x, w_up, w_down, seg_ids, scale_tiles, w_gate,
             seg_size=seg_size, activation=activation)
     if x.device.type == "cuda":
-        return sparse_ffn_segments_fused_cuda(
+        return sparse_ffn.sparse_ffn_segments_fused_cuda(
             x, w_up, w_down, seg_ids, scale_tiles, w_gate,
             seg_size=seg_size, activation=activation)
     raise ValueError(f"sparse_ffn_segments_fused: unsupported device "
                      f"{x.device}")
+
+
+def paged_decode_attention(
+    q: torch.Tensor,              # [B, H, hd] query of ONE new token
+    k_pages: torch.Tensor,        # [num_pages + 1, page_size, KV, hd] arena
+    v_pages: torch.Tensor,        #   (the trailing page is the null page)
+    page_tables: torch.Tensor,    # [B, max_pages] int32
+    cur_pos: torch.Tensor,        # [B] int32 current (query) position per row
+    k_scale: Optional[torch.Tensor] = None,   # [num_pages + 1, page_size, KV]
+    v_scale: Optional[torch.Tensor] = None,   #   bf16 (int8 arenas only)
+) -> torch.Tensor:
+    """Paged-attention decode over a page arena; f32 [B, H, hd]. Raises
+    ValueError when only one of the two scales is given."""
+    if q.device.type == "cpu":
+        paged_decode.counts.plain_calls += 1
+        return paged_decode.paged_decode_attention_plain(
+            q, k_pages, v_pages, page_tables, cur_pos, k_scale, v_scale)
+    if q.device.type == "cuda":
+        return paged_decode.paged_decode_attention_cuda(
+            q, k_pages, v_pages, page_tables, cur_pos, k_scale, v_scale)
+    raise ValueError(f"paged_decode_attention: unsupported device {q.device}")

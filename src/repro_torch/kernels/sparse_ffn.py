@@ -23,32 +23,18 @@ by the device of the input.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import Counts, load_library
 from repro_torch.models.layers import apply_activation
 
 ACTIVATIONS = {"relu": 0, "relu2": 1, "gelu": 2, "silu": 3}
 WEIGHT_DTYPES = (torch.float32, torch.int8)
 
 
-@dataclasses.dataclass
-class Counts:
-    """Plain-integer call counters: `launches` goes up by one where the CUDA
-    kernel is launched (and nowhere else), `plain_calls` where the
-    dispatcher routes a CPU tensor to the plain version. A run resets them,
-    drives the path, and reads them to show which route it took."""
-    launches: int = 0
-    plain_calls: int = 0
-
-    def reset(self) -> None:
-        self.launches = self.plain_calls = 0
-
-
-counts = Counts()
+counts = Counts()   # this kernel's own launch / plain-call counters
 
 
 def sparse_ffn_segments_fused_plain(

@@ -3,9 +3,12 @@
 Entry points (functions of (params, batch), like the reference's):
   init_params(generator)                     — seeded parameter init
   forward(params, batch, capture=False)      — logits (+ FFN captures)
-  init_cache(batch, max_len)                 — contiguous KV cache
+  init_cache(batch, max_len)                 — contiguous KV cache (int8
+                                               when cfg.kv_quant)
+  init_paged_cache(num_pages, page_size)     — paged KV arenas
   prefill(params, batch, cache)              — (logits_last, cache)
-  decode_step(params, tokens, position, cache) — (logits, cache)
+  decode_step(params, tokens, position, cache, page_tables=None)
+                                             — (logits, cache)
 
 Params are nested dicts of tensors on `model.device`: {"embed": {...},
 "stack": [per-group {"sub_j": {...}}], "final_norm": {...}} — the
@@ -78,6 +81,14 @@ class Model:
         return transformer.init_stack_cache(self.cfg, batch, max_len,
                                             self.device, swa=swa, dtype=dtype)
 
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         dtype=None) -> Any:
+        """Paged KV arenas (attention-only stacks; see
+        `transformer.init_paged_stack_cache` for the layout and the
+        ValueError surface)."""
+        return transformer.init_paged_stack_cache(
+            self.cfg, num_pages, page_size, self.device, dtype=dtype)
+
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache: Any, window: int = 0) -> Tuple[torch.Tensor, Any]:
         """Dense prefill; fills `cache` in place. Returns ([B, 1, V] logits of
@@ -90,14 +101,18 @@ class Model:
         return unembed(params["embed"], h, cfg), cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor, position,
-                    cache: Any) -> Tuple[torch.Tensor, Any]:
+                    cache: Any, page_tables: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Any]:
         """tokens: [B, 1]; position: a scalar shared by the batch, or a [B]
-        vector of per-slot positions (continuous-batching decode). Updates
-        `cache` in place."""
+        vector of per-slot positions (continuous-batching decode).
+        `page_tables` [B, max_pages] int32 routes a paged cache (from
+        `init_paged_cache`; per-slot positions required). Updates `cache`
+        in place."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
         h, cache = transformer.stack_decode_step(params["stack"], x, position,
-                                                 cache, cfg)
+                                                 cache, cfg,
+                                                 page_tables=page_tables)
         h = apply_norm(params["final_norm"], h, cfg)
         return unembed(params["embed"], h, cfg), cache
 

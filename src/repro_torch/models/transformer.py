@@ -4,9 +4,12 @@ The reference scans its stack with `lax.scan` over parameters stacked
 [G, ...] along a group axis (G = n_layers / period). The port keeps the
 same grouping but holds it as a list: `stack[g]` is group g's dict
 {"sub_j": sublayer params}, and caches mirror it (`cache[g]["sub_j"]` is a
-`KVCache`). For the dense decoder-only models this slice serves, the period
-is 1, so group g is layer g.
+`KVCache`, a `QuantKVCache` when `cfg.kv_quant`, or a paged arena). For the
+dense decoder-only models the port serves, the period is 1, so group g is
+layer g.
 
+Decode attention over a paged arena goes through
+`kernels.ops.paged_decode_attention` (the hand-written kernel on the card).
 Only attention mixers and dense FFNs are ported; SSM and MoE sublayers, and
 the predictor-driven `serve_sparse` decode, raise ValueError.
 """
@@ -17,8 +20,16 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.kvcache import (KVCache, attend_full_cache,
-                                        init_kv_cache, kv_write, kv_write_rows)
+from repro_torch.models.kvcache import (KVCache, PagedKVCache,
+                                        PagedQuantKVCache, QuantKVCache,
+                                        attend_full_cache,
+                                        init_kv_cache, init_paged_kv_cache,
+                                        init_paged_quant_kv_cache,
+                                        init_quant_kv_cache, kv_write,
+                                        kv_write_rows, paged_kv_write_rows,
+                                        paged_quant_kv_write_rows,
+                                        paged_targets, quant_kv_write,
+                                        quant_kv_write_rows)
 from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        attention_forward, ffn_forward,
                                        init_attention, init_ffn, init_norm,
@@ -119,15 +130,54 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                      swa: bool = False, dtype=None) -> List[Params]:
-    """Per group, {"sub_j": KVCache [batch, max_len, KV, hd]}."""
+    """Per group, {"sub_j": KVCache [batch, max_len, KV, hd]}, or the int8
+    `QuantKVCache` when `cfg.kv_quant`."""
     if swa:
         raise NotImplementedError(
             "sliding-window (swa) caches are not ported to PyTorch yet")
     check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
-    return [{f"sub_{j}": init_kv_cache(batch, max_len, cfg, device, dtype)
-             for j in range(P)} for _ in range(G)]
+
+    def one():
+        if cfg.kv_quant:
+            return init_quant_kv_cache(batch, max_len, cfg, device)
+        return init_kv_cache(batch, max_len, cfg, device, dtype)
+
+    return [{f"sub_{j}": one() for j in range(P)} for _ in range(G)]
+
+
+def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                           device, dtype=None) -> List[Params]:
+    """Paged cache: per group, {"sub_j": a page arena [num_pages + 1,
+    page_size, KV, hd]} (the trailing null page absorbs inactive-slot
+    writes), int8 with scales when `cfg.kv_quant`. One set of `num_pages`
+    logical pages serves every layer: a page-table entry indexes all
+    arenas at once, so allocator accounting stays per request.
+
+    Raises ValueError for stacks the paged layout cannot represent (SSM
+    sublayers keep per-slot recurrent state, not positional KV) — no silent
+    fallback to a contiguous cache."""
+    if num_pages < 1 or page_size < 1:
+        raise ValueError(f"paged cache needs num_pages >= 1 and page_size >= 1, "
+                         f"got num_pages={num_pages} page_size={page_size}")
+    kinds = cfg.layer_kinds()
+    if any(k != "attn" for k in kinds):
+        raise ValueError(
+            f"paged KV cache covers attention-only stacks; config "
+            f"{cfg.arch_id!r} has layer kinds {sorted(set(kinds))} (SSM "
+            f"sublayers carry per-slot recurrent state, which pages cannot "
+            f"represent)")
+    check_supported(cfg)
+    P = stack_period(cfg)
+    G = cfg.n_layers // P
+
+    def one():
+        if cfg.kv_quant:
+            return init_paged_quant_kv_cache(num_pages, page_size, cfg, device)
+        return init_paged_kv_cache(num_pages, page_size, cfg, device, dtype)
+
+    return [{f"sub_{j}": one() for j in range(P)} for _ in range(G)]
 
 
 # -- prefill ----------------------------------------------------------------------
@@ -146,7 +196,9 @@ def stack_prefill(stack: List[Params], x: torch.Tensor,
         normed = apply_norm(sp["norm1"], h, cfg)
         mix, k, v = attention_forward(sp["mixer"], normed, positions, cfg,
                                       window=window)
-        kv_write(group_cache[f"sub_{j}"], k, v, 0)
+        cj = group_cache[f"sub_{j}"]
+        (quant_kv_write if isinstance(cj, QuantKVCache) else kv_write)(
+            cj, k, v, 0)
         h = h + mix
         if ffn == "dense":
             y, _ = ffn_forward(sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)
@@ -166,25 +218,76 @@ def _decode_positions(position, B: int, device) -> torch.Tensor:
     return pos.reshape(1, 1).expand(B, 1)
 
 
-def _mixer_decode(sp: Params, cj: KVCache, h: torch.Tensor,
-                  pos_arr: torch.Tensor, position, cfg: ModelConfig
-                  ) -> Tuple[torch.Tensor, KVCache]:
+class PagedStep(NamedTuple):
+    """What every paged attention sublayer of one decode step shares,
+    computed once per step: the page tables, the per-row query positions,
+    and each row's (page, offset) write target."""
+    page_tables: torch.Tensor   # [B, max_pages] int32
+    cur_pos: torch.Tensor       # [B] int32
+    targets: Tuple[torch.Tensor, torch.Tensor]
+
+
+def _paged_step(position, page_tables: Optional[torch.Tensor],
+                cache_groups: List[Params]) -> Optional[PagedStep]:
+    """The step's `PagedStep` when its caches are paged arenas (None for
+    contiguous caches). Raises ValueError for a paged cache without page
+    tables or per-slot positions."""
+    first = next(iter(cache_groups[0].values())) if cache_groups else None
+    if not isinstance(first, (PagedKVCache, PagedQuantKVCache)):
+        return None
+    if page_tables is None:
+        raise ValueError("paged KV cache decode needs page_tables")
+    if torch.as_tensor(position).ndim != 1:
+        raise ValueError("paged KV cache decode needs per-slot [B] "
+                         "positions (continuous batching)")
+    cur_pos = torch.as_tensor(position, device=page_tables.device).to(
+        torch.int32)
+    return PagedStep(page_tables=page_tables, cur_pos=cur_pos,
+                     targets=paged_targets(cur_pos, page_tables,
+                                           first.page_size))
+
+
+def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
+                  pos_arr: torch.Tensor, position, cfg: ModelConfig,
+                  paged: Optional[PagedStep] = None) -> Tuple[torch.Tensor, Any]:
     """One attention sublayer for a single decode token: (mix [B,1,d], cache).
 
-    `position` is a shared scalar or a per-slot [B] vector; the cache write
-    picks the matching (slice vs per-row scatter) variant."""
-    if not isinstance(cj, KVCache):
-        raise ValueError(f"unsupported cache type {type(cj).__name__}: only "
-                         f"the contiguous float KVCache is ported")
+    `position` is a shared scalar or a per-slot [B] vector; the contiguous
+    cache writes pick the matching (slice vs per-row scatter) variant. A
+    paged arena takes its write through `paged.targets` and attends through
+    `ops.paged_decode_attention` (the plain version on the CPU, the
+    hand-written kernel on the card)."""
     normed = apply_norm(sp["norm1"], h, cfg)
     q, k, v = _project_qkv(sp["mixer"], normed, normed, cfg)
     q = rope(q, pos_arr, cfg.rope_theta)
     k = rope(k, pos_arr, cfg.rope_theta)
-    if torch.as_tensor(position).ndim == 1:
-        cj = kv_write_rows(cj, k, v, pos_arr[:, 0])
+    per_row = torch.as_tensor(position).ndim == 1
+    if isinstance(cj, (PagedKVCache, PagedQuantKVCache)):
+        # imported here: the kernels' plain versions import this package
+        from repro_torch.kernels import ops
+        q1 = q[:, 0].float().contiguous()
+        if isinstance(cj, PagedQuantKVCache):
+            cj = paged_quant_kv_write_rows(cj, k, v, paged.targets)
+            out = ops.paged_decode_attention(
+                q1, cj.k, cj.v, paged.page_tables, paged.cur_pos,
+                k_scale=cj.k_scale, v_scale=cj.v_scale)
+        else:
+            cj = paged_kv_write_rows(cj, k, v, paged.targets)
+            out = ops.paged_decode_attention(
+                q1, cj.k, cj.v, paged.page_tables, paged.cur_pos)
+        # [B, H, hd] f32 back to the [B, 1, H*hd] residual layout
+        B, H, hd = out.shape
+        mix = out.reshape(B, 1, H * hd).to(q.dtype)
+    elif isinstance(cj, QuantKVCache):
+        cj = (quant_kv_write_rows(cj, k, v, pos_arr[:, 0]) if per_row
+              else quant_kv_write(cj, k, v, position))
+        mix = attend_full_cache(q, cj, pos_arr)
+    elif isinstance(cj, KVCache):
+        cj = (kv_write_rows(cj, k, v, pos_arr[:, 0]) if per_row
+              else kv_write(cj, k, v, position))
+        mix = attend_full_cache(q, cj, pos_arr)
     else:
-        cj = kv_write(cj, k, v, position)
-    mix = attend_full_cache(q, cj, pos_arr)
+        raise ValueError(f"unsupported cache type {type(cj).__name__}")
     return mix @ sp["mixer"]["wo"], cj
 
 
@@ -198,6 +301,7 @@ def stack_decode_step_layerwise(
     cache_groups: List[Params],
     cfg: ModelConfig,
     ffn_override: Optional[FFNOverride] = None,
+    page_tables: Optional[torch.Tensor] = None,   # [B, max_pages] int32
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One decode step over every layer, on the host loop.
 
@@ -207,9 +311,11 @@ def stack_decode_step_layerwise(
     `dense_layer_idx` counts dense FFN sublayers in (group, sublayer) order,
     the same order `stack_forward(capture_activations=True)` stacks
     `ffn_pre_act`, so calibration traces and serving agree on layer ids.
-    Caches are updated in place."""
+    `page_tables` routes paged arenas (from `init_paged_stack_cache`); the
+    one page table serves every layer. Caches are updated in place."""
     B = x.shape[0]
     pos_arr = _decode_positions(position, B, x.device)
+    paged = _paged_step(position, page_tables, cache_groups)
     h = x
     dense_idx = 0
     P = stack_period(cfg)
@@ -218,7 +324,8 @@ def stack_decode_step_layerwise(
         for j in range(P):
             sp = group_params[f"sub_{j}"]
             mix, group_cache[f"sub_{j}"] = _mixer_decode(
-                sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg)
+                sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
+                paged)
             h = h + mix
             if ffns[j] == "dense":
                 normed2 = apply_norm(sp["norm2"], h, cfg)
@@ -232,9 +339,11 @@ def stack_decode_step_layerwise(
 
 
 def stack_decode_step(stack: List[Params], x: torch.Tensor, position,
-                      cache: List[Params], cfg: ModelConfig
+                      cache: List[Params], cfg: ModelConfig,
+                      page_tables: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, List[Params]]:
     """Resident decode step: `stack_decode_step_layerwise` with the dense
     FFN on the resident weights (the reference's scan and its layerwise
     loop run the same math; in the port they are one loop)."""
-    return stack_decode_step_layerwise(stack, x, position, cache, cfg)
+    return stack_decode_step_layerwise(stack, x, position, cache, cfg,
+                                       page_tables=page_tables)

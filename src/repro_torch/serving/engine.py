@@ -354,14 +354,11 @@ def dense_ffn_layer_count(cfg: ModelConfig) -> int:
 
 
 def reject_unported(*, prefetch: bool = False, oracle: bool = True,
-                    pack_path: Optional[str] = None, swa: bool = False,
-                    page_size: Optional[int] = None,
-                    num_pages: Optional[int] = None) -> None:
+                    pack_path: Optional[str] = None,
+                    swa: bool = False) -> None:
     """Raise NotImplementedError for serving options whose slice has not
     landed in the port yet (they are never silently ignored)."""
-    unported = [(page_size is not None or num_pages is not None,
-                 "paged KV cache (page_size/num_pages)"),
-                (prefetch, "the prefetch pipeline (prefetch=True)"),
+    unported = [(prefetch, "the prefetch pipeline (prefetch=True)"),
                 (not oracle, "trained predictors (oracle=False)"),
                 (pack_path is not None, "serving from a NeuronPack (pack_path)"),
                 (swa, "sliding-window caches (swa=True)")]

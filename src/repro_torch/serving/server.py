@@ -13,6 +13,13 @@ lifecycle (QUEUED -> PREFILL -> DECODE -> FINISHED), on PyTorch.
     activation-mask union, so a finished request stops incurring flash I/O;
   * streaming via `submit(..., on_token=...)` callbacks or `stream(handle)`.
 
+Paged KV (`page_size`/`num_pages`): a shared page arena
+(`serving/paging.py`) replaces the per-slot contiguous caches; admission
+maps prompt prefixes shared with the registry or a live request,
+copy-on-write keeps sharers intact, a page gate defers what the pool cannot
+cover, and every retirement path releases the request's pages. Each decode
+step sends the page tables to the device once, for all layers.
+
 Offload mode rides the same loop: the [n_slots, n_neurons] ReLU-oracle mask
 matrix (inactive rows zeroed) feeds `OffloadEngine.step_masks`, per-uid I/O
 attribution accumulates on each handle (summing exactly to the engines'
@@ -51,6 +58,7 @@ from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs import request_timeline as _build_request_timeline
 from repro_torch.serving.engine import (OffloadedFFNRuntime, Request, Result,
                                         reject_unported)
+from repro_torch.serving.paging import PagePool, cdiv
 from repro_torch.utils import logger, stable_hash
 
 
@@ -134,6 +142,15 @@ class ServerStats:
     io_deferrals: int = 0             # admissions deferred by the I/O gate
     results_released: int = 0         # finished handles auto-released
     peak_queue_depth: int = 0         # max QUEUED depth ever observed
+    # -- paged-KV counters (mirrors of PagePoolStats; zero unless paged) ------
+    pages_allocated: int = 0          # page allocations over the run
+    pages_shared: int = 0             # pages mapped shared at admission
+    prefix_hits: int = 0              # admissions that matched a shared prefix
+    cow_copies: int = 0               # copy-on-write page copies
+    peak_page_occupancy: int = 0      # max pages simultaneously referenced
+    prefix_evictions: int = 0         # registry entries evicted under pressure
+    page_deferrals: int = 0           # admissions deferred by the page gate
+    preemptions: int = 0              # active requests retired for pages
 
     @property
     def occupancy(self) -> float:
@@ -159,9 +176,16 @@ class InferenceServer:
             ...
         server.close()
 
-    Options whose slice has not been ported (`page_size`/`num_pages`,
-    `prefetch=True`, `oracle=False`, `pack_path`, `swa`) raise
-    NotImplementedError.
+    Paged KV: set BOTH `page_size` and `num_pages` to replace the per-slot
+    contiguous caches with a shared page arena (`serving/paging.py`) —
+    attention-only decoder stacks, no `swa`. `page_overcommit=False`
+    (strict) admits only requests whose worst-case page need is covered, so
+    decode growth never runs dry; True gates on the immediate prompt need
+    only, trading possible page-pressure preemption for higher admitted
+    concurrency. `cfg.kv_quant` selects the int8 cache, paged or not.
+
+    Options whose slice has not been ported (`prefetch=True`,
+    `oracle=False`, `pack_path`, `swa`) raise NotImplementedError.
     """
 
     def __init__(self, model: Model, params: Any, *, max_slots: int = 4,
@@ -180,11 +204,17 @@ class InferenceServer:
                  clock: Optional[Callable[[], float]] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
+                 page_overcommit: bool = False,
                  device: DeviceLike = None):
         if mode not in ("resident", "offload"):
             raise ValueError(f"unknown serving mode {mode!r}")
+        if (page_size is None) != (num_pages is None):
+            raise ValueError("pass both page_size and num_pages, or neither")
+        if page_size is not None and swa:
+            raise ValueError("paged KV cache does not combine with swa "
+                             "(sliding-window rings are per-slot, not paged)")
         reject_unported(prefetch=prefetch, oracle=oracle, pack_path=pack_path,
-                        swa=swa, page_size=page_size, num_pages=num_pages)
+                        swa=swa)
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
         cfg = model.cfg
@@ -236,9 +266,23 @@ class InferenceServer:
         self._slot_handle: List[Optional[RequestHandle]] = [None] * max_slots
         self._slot_pos = np.zeros(max_slots, dtype=np.int64)
         self._cur = np.zeros(max_slots, dtype=np.int64)
-        # one contiguous cache for all slots, per group {"sub_j": KVCache};
+        # paged KV: the pool owns ALL KV memory; per-uid page tables map each
+        # request onto exactly the pages it has filled. Otherwise one
+        # contiguous cache for all slots, per group {"sub_j": KVCache};
         # admission copies a request's prefilled rows into its slot in place
-        self._cache = model.init_cache(max_slots, max_len)
+        self._pool: Optional[PagePool] = None
+        self._tables: Dict[int, Any] = {}
+        self._cache = None
+        if page_size is not None:
+            # PagePool/init_paged_stack_cache validate page geometry and
+            # reject non-attention (SSM) sublayers with a ValueError — paged
+            # serving never silently falls back
+            self._pool = PagePool(cfg, num_pages=num_pages,
+                                  page_size=page_size, max_len=max_len,
+                                  overcommit=page_overcommit,
+                                  device=self.device)
+        else:
+            self._cache = model.init_cache(max_slots, max_len)
         if mode == "offload":
             self._w_ups = _oracle_w_ups(model, params)
             if len(self._w_ups) != offload.n_layers:
@@ -255,7 +299,8 @@ class InferenceServer:
         reg.register_gauge("server.n_active", lambda: self.n_active)
         for field in ("tokens_emitted", "decode_steps", "admitted", "retired",
                       "rejected", "shed", "timeouts", "io_deferrals",
-                      "prefill_seconds", "decode_seconds"):
+                      "page_deferrals", "preemptions", "prefill_seconds",
+                      "decode_seconds"):
             reg.register_gauge(f"server.{field}",
                                lambda f=field: getattr(self.stats, f))
         reg.register_gauge("server.occupancy", lambda: self.stats.occupancy)
@@ -273,7 +318,8 @@ class InferenceServer:
         """Queue a request; valid any time, including mid-decode.
 
         Raises ValueError if the request cannot fit its slot: the prompt plus
-        `max_new_tokens` must fit in `max_len` KV-cache positions.
+        `max_new_tokens` must fit in `max_len` KV-cache positions (and, when
+        paged, in the pool's pages).
         Backpressure: with `queue_limit` set and the queue full, either the
         worst STRICTLY-lower-priority queued request is shed in favor of this
         one, or this request is retired immediately with
@@ -289,6 +335,14 @@ class InferenceServer:
                 f"request {request.uid}: prompt ({T} tokens) + max_new_tokens "
                 f"({request.max_new_tokens}) exceeds the server's max_len "
                 f"({self.max_len}); shorten the request or raise max_len")
+        if self._pool is not None:
+            need = cdiv(T + request.max_new_tokens, self._pool.page_size)
+            if need > self._pool.num_pages:
+                raise ValueError(
+                    f"request {request.uid}: prompt + max_new_tokens needs "
+                    f"{need} pages of {self._pool.page_size}, but the pool "
+                    f"has only {self._pool.num_pages}; shorten the request "
+                    f"or grow the pool")
         if request.uid in self._handles:
             raise ValueError(f"duplicate request uid {request.uid}")
         gen = torch.Generator().manual_seed(
@@ -389,9 +443,17 @@ class InferenceServer:
         self._expire_queued(now)
         while self._queue and None in self._slot_handle:
             cand = self._next_admission()
-            if cand is None:               # the admission gate said "not yet"
+            if cand is None:               # an admission gate said "not yet"
                 break
-            emitted += self._admit(cand)
+            got = self._admit(cand)
+            if got is None:                # pool dry mid-admission: requeued
+                break
+            emitted += got
+        if self._pool is not None:
+            # make every active row's next position writable BEFORE the
+            # batched decode: page-boundary growth, CoW at divergence points,
+            # and — pool dry even after prefix eviction — preemption
+            self._grow_page_tables()
         if any(h is not None for h in self._slot_handle):
             try:
                 emitted += self._decode_iteration()
@@ -401,6 +463,8 @@ class InferenceServer:
                 for h in list(self._slot_handle):
                     if h is not None:
                         self._fail_request(h, e)
+        if self._pool is not None:
+            self._sync_page_stats()
         progress = (emitted + (self.stats.retired - retired0)
                     + (self.stats.admitted - admitted0))
         if progress == 0 and self.has_work:
@@ -447,19 +511,42 @@ class InferenceServer:
 
     def _next_admission(self) -> Optional[RequestHandle]:
         """Pop the queued request to admit next (highest priority, earliest
-        TTFT deadline, submission order) unless the flash-I/O admission gate
-        defers it (counted in `stats.io_deferrals`)."""
+        TTFT deadline, submission order) unless the page gate or the
+        flash-I/O admission gate defers it (counted in
+        `stats.page_deferrals` / `stats.io_deferrals`)."""
         if not self._queue:
             return None
         best = min(self._queue,
                    key=lambda h: (-h.request.priority, _deadline_or_inf(h),
                                   h._order))
+        if self._page_defers(best):
+            get_tracer().instant("defer", uid=best.uid, gate="page")
+            self.stats.page_deferrals += 1
+            return None
         if self._io_defers(best):
             get_tracer().instant("defer", uid=best.uid, gate="io")
             self.stats.io_deferrals += 1
             return None
         self._queue.remove(best)
         return best
+
+    def _page_defers(self, candidate: RequestHandle) -> bool:
+        """Page-availability admission gate (paged KV only): True when the
+        pool cannot cover the candidate — its worst-case lifetime page need
+        in strict mode, its immediate prompt need under `page_overcommit` —
+        out of free + registry-evictable pages net of the commitments already
+        promised to active requests and of the registry pages the candidate
+        itself would pin. Never defers an empty batch: `submit` bounded the
+        request to the pool, and with nothing active every non-free page is
+        either registry-evictable or a prefix the candidate shares."""
+        if self._pool is None:
+            return False
+        if not any(h is not None for h in self._slot_handle):
+            return False
+        r = candidate.request
+        plan = self._pool.plan_admit(np.asarray(r.prompt, dtype=np.int32),
+                                     r.max_new_tokens)
+        return not self._pool.can_admit(plan)
 
     def _io_defers(self, candidate: RequestHandle) -> bool:
         """Flash-I/O-aware admission gate: True when the UFS model predicts
@@ -544,12 +631,32 @@ class InferenceServer:
         self.close()
 
     # -- admission / retirement ----------------------------------------------
-    def _admit(self, handle: RequestHandle) -> int:
+    def _admit(self, handle: RequestHandle) -> Optional[int]:
         """Prefill one queued request into a free slot. Failure-isolated: an
         exception anywhere in admission retires THIS request with
-        `finish_reason="error"`. Returns the number of tokens emitted."""
+        `finish_reason="error"`.
+
+        Returns the number of tokens emitted (0 or 1), or None when the page
+        pool ran dry mid-admission: the request goes BACK to the queue
+        (counted as a page deferral, nothing to unwind — the table is built
+        before the prefill), and the caller stops admitting this step."""
         slot = self._slot_handle.index(None)
         r = handle.request
+        table = prompt_np = None
+        if self._pool is not None:
+            prompt_np = np.asarray(r.prompt, dtype=np.int32)
+            table, _ = self._pool.admit(prompt_np, r.max_new_tokens,
+                                        uid=r.uid)
+            if table is None:
+                # the gate prices pinned shares, so this should not happen —
+                # but a dry pool defers rather than killing the request (the
+                # stall watchdog catches a gate that never opens)
+                logger.warning("page pool dry while admitting request %d; "
+                               "deferring it back to the queue", r.uid)
+                self.stats.page_deferrals += 1
+                self._queue.append(handle)
+                return None
+            self._tables[r.uid] = table
         handle.state = RequestState.PREFILL
         handle.slot = slot
         handle.admitted_at = self._clock()
@@ -571,7 +678,13 @@ class InferenceServer:
             tr.complete("prefill", t0u, t1u, track=f"req {r.uid}", uid=r.uid)
             self.stats.prefill_seconds += handle.prefill_seconds
             self.stats.admitted += 1
-            self._write_slot(slot, small)
+            if self._pool is not None:
+                # the table was registered in _tables before the prefill, so
+                # any failure below releases the pages via the _retire path
+                self._pool.write_prompt(table, small)
+                self._pool.register_prefixes(prompt_np, table)
+            else:
+                self._write_slot(slot, small)
             self._slot_handle[slot] = handle
             self._slot_pos[slot] = T
             handle.state = RequestState.DECODE
@@ -593,8 +706,8 @@ class InferenceServer:
         everything past the current position."""
         for big_g, small_g in zip(self._cache, small_cache):
             for name, big in big_g.items():
-                big.k[slot].copy_(small_g[name].k[0])
-                big.v[slot].copy_(small_g[name].v[0])
+                for big_leaf, small_leaf in zip(big, small_g[name]):
+                    big_leaf[slot].copy_(small_leaf[0])
 
     def _emit(self, handle: RequestHandle, tok: int) -> None:
         now = self._clock()
@@ -638,6 +751,12 @@ class InferenceServer:
             self._slot_handle[handle.slot] = None   # future mask union
             handle.slot = None
         self._handles.pop(handle.uid, None)
+        if self._pool is not None:
+            # deterministic page reclamation on EVERY retirement path —
+            # length/stop/timeout/error/rejected/preempted/abort all land here
+            table = self._tables.pop(handle.uid, None)
+            if table is not None:
+                self._pool.release(table)
         self._finished.append(handle)
         self.stats.retired += 1
         hw = self.finished_high_water
@@ -655,6 +774,77 @@ class InferenceServer:
         logger.warning("request %d failed (%r); retiring with "
                        "finish_reason='error'", handle.uid, exc)
         self._retire(handle, "error", error=exc)
+
+    # -- paged-KV growth / preemption -----------------------------------------
+    def _grow_page_tables(self) -> None:
+        """Pre-decode growth pass: every active row's next write position
+        gets a resident, privately-owned page (boundary alloc / CoW). In
+        strict admission mode the pool can never be dry here — admission
+        reserved every request's worst case. Under `page_overcommit` a dry
+        pool preempts: the registry is already drained by the allocator, so
+        the lowest-priority active request (latest deadline, newest — the
+        `_shed_victim` key) retires with `finish_reason="preempted"`, its
+        partial tokens intact and its pages released, and the needer
+        retries. The needer can be its own victim."""
+        for slot in range(self.max_slots):
+            while True:
+                h = self._slot_handle[slot]
+                if h is None:
+                    break
+                table = self._tables.get(h.uid)
+                if table is None or \
+                        self._pool.prepare_append(table,
+                                                  int(self._slot_pos[slot])):
+                    break
+                victim = min(
+                    (a for a in self._slot_handle if a is not None),
+                    key=lambda a: (a.request.priority, -_deadline_or_inf(a),
+                                   -a._order))
+                self.stats.preemptions += 1
+                get_tracer().instant("preempt", uid=victim.uid,
+                                     for_uid=h.uid,
+                                     priority=victim.request.priority)
+                logger.warning(
+                    "page pool dry growing request %d (pos %d): preempting "
+                    "request %d (priority %d, %d tokens) with "
+                    "finish_reason='preempted'", h.uid,
+                    int(self._slot_pos[slot]), victim.uid,
+                    victim.request.priority, len(victim.tokens))
+                self._retire(victim, "preempted")
+
+    def _page_tables_np(self) -> np.ndarray:
+        """[max_slots, max_pages] physical-page array for the decode step;
+        free slots (and every unallocated logical page) point at the null
+        page, so their garbage writes cannot touch a live page."""
+        pool = self._pool
+        pt = np.full((self.max_slots, pool.max_pages_per_seq),
+                     pool.null_page, dtype=np.int32)
+        for slot, h in enumerate(self._slot_handle):
+            if h is not None:
+                table = self._tables.get(h.uid)
+                if table is not None:
+                    pool.page_table_row(table, pt[slot])
+        return pt
+
+    def _sync_page_stats(self) -> None:
+        ps = self._pool.stats
+        s = self.stats
+        s.pages_allocated = ps.pages_allocated
+        s.pages_shared = ps.pages_shared
+        s.prefix_hits = ps.prefix_hits
+        s.cow_copies = ps.cow_copies
+        s.peak_page_occupancy = ps.peak_page_occupancy
+        s.prefix_evictions = ps.prefix_evictions
+
+    def page_summary(self) -> Optional[Dict[str, Any]]:
+        """Pool configuration + lifetime counters (None when the server is
+        not paged)."""
+        if self._pool is None:
+            return None
+        out = self._pool.summary()
+        out["page_deferrals"] = self.stats.page_deferrals
+        out["preemptions"] = self.stats.preemptions
+        return out
 
     # -- sampling (per-request streams) ---------------------------------------
     def _sample_row(self, handle: RequestHandle, row: np.ndarray) -> int:
@@ -711,16 +901,25 @@ class InferenceServer:
                 self._fail_request(handle, e)
         return emitted
 
-    def _tokens_and_positions(self):
+    def _step_inputs(self):
+        """The decode step's device inputs, sent once per step: last tokens
+        [B, 1], positions [B], and (paged) the int32 page tables
+        [B, max_pages] that every layer shares (None when not paged)."""
         cur = torch.as_tensor(self._cur[:, None], device=self.device)
         pos = torch.as_tensor(self._slot_pos.copy(), device=self.device)
-        return cur, pos
+        pt = (None if self._pool is None else
+              torch.as_tensor(self._page_tables_np(), device=self.device))
+        return cur, pos, pt
 
     def _decode_resident(self):
         t0 = time.perf_counter()
-        cur, pos = self._tokens_and_positions()
-        logits, self._cache = self._decode_fn(self.params, cur, pos,
-                                              self._cache)
+        cur, pos, pt = self._step_inputs()
+        if self._pool is not None:
+            logits, self._pool.cache_groups = self._decode_fn(
+                self.params, cur, pos, self._pool.cache_groups, pt)
+        else:
+            logits, self._cache = self._decode_fn(self.params, cur, pos,
+                                                  self._cache)
         rows = logits[:, 0].float().cpu().numpy()        # the per-token sync
         wall = time.perf_counter() - t0
         return rows, wall, np.zeros(self.max_slots), 0.0
@@ -762,12 +961,18 @@ class InferenceServer:
             return y[:, None]
 
         t0 = time.perf_counter()
-        cur, pos = self._tokens_and_positions()
+        cur, pos, pt = self._step_inputs()
         x = embed_tokens(self.params["embed"], cur, cfg)
         self.scheduler.begin_token()
-        h, self._cache = stack_decode_step_layerwise(
-            self.params["stack"], x, pos, self._cache, cfg,
-            ffn_override=override)
+        paged = self._pool is not None
+        h, cache = stack_decode_step_layerwise(
+            self.params["stack"], x, pos,
+            self._pool.cache_groups if paged else self._cache, cfg,
+            ffn_override=override, page_tables=pt)
+        if paged:
+            self._pool.cache_groups = cache
+        else:
+            self._cache = cache
         h = apply_norm(self.params["final_norm"], h, cfg)
         logits = unembed(self.params["embed"], h, cfg)
         rows = logits[:, 0].float().cpu().numpy()   # the end-of-token sync

@@ -82,10 +82,14 @@ def test_dispatcher_routes_cpu_to_plain_and_counts():
     x, w_up, w_down, seg_ids, tiles, _ = _inputs(1, 256, 64, 2, False, False,
                                                  n_ids=20)
     args = [torch.from_numpy(a) for a in (x, w_up, w_down, seg_ids, tiles)]
-    ops.counts.reset()
+    ops.reset_counts()
     y = ops.sparse_ffn_segments_fused(*args, seg_size=SEG, activation="relu")
     y2 = ops.sparse_ffn_segments_fused(*args, seg_size=SEG, activation="relu")
-    assert (ops.counts.launches, ops.counts.plain_calls) == (0, 2)
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    assert (ffn.launches, ffn.plain_calls) == (0, 2)
+    # each kernel keeps its own pair: the paged kernel's did not move
+    paged = ops.counts["paged_decode"]
+    assert (paged.launches, paged.plain_calls) == (0, 0)
     assert torch.equal(y, y2)
     assert y.dtype == torch.float32 and tuple(y.shape) == (2, 64)
 

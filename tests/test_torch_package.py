@@ -104,6 +104,7 @@ def test_kernel_wrapper_never_falls_back():
     """The dispatcher routes only CPU tensors to the plain version; the CUDA
     wrapper rejects a CPU tensor instead of computing it."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode_attention_cuda
     from repro_torch.kernels.sparse_ffn import sparse_ffn_segments_fused_cuda
     x = torch.zeros((2, 8))
     w = torch.zeros((128, 8))
@@ -111,9 +112,19 @@ def test_kernel_wrapper_never_falls_back():
     tiles = torch.zeros((1, 128))
     with pytest.raises(ValueError, match="CUDA device"):
         sparse_ffn_segments_fused_cuda(x, w, w, ids, tiles)
-    ops.counts.reset()
+    ops.reset_counts()
     ops.sparse_ffn_segments_fused(x, w, w, ids, tiles)
-    assert (ops.counts.launches, ops.counts.plain_calls) == (0, 1)
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    assert (ffn.launches, ffn.plain_calls) == (0, 1)
+    q = torch.zeros((1, 2, 8))
+    arena = torch.zeros((3, 4, 2, 8))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    cur = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        paged_decode_attention_cuda(q, arena, arena, table, cur)
+    ops.paged_decode_attention(q, arena, arena, table, cur)
+    paged = ops.counts["paged_decode"]
+    assert (paged.launches, paged.plain_calls) == (0, 1)
 
 
 def test_unported_options_raise():
@@ -123,8 +134,8 @@ def test_unported_options_raise():
     cfg = _tiny_cfg()
     model = build_model(cfg, device="cpu")
     params = model.init_params()
-    for kw in (dict(page_size=8, num_pages=4), dict(prefetch=True),
-               dict(oracle=False), dict(pack_path="x.pack"), dict(swa=True)):
+    for kw in (dict(prefetch=True), dict(oracle=False),
+               dict(pack_path="x.pack"), dict(swa=True)):
         with pytest.raises(NotImplementedError):
             InferenceServer(model, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError):

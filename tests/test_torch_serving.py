@@ -84,13 +84,14 @@ def test_offload_server_matches_reference_and_resident(both):
     runtime.reset_stats()
     jhandles, _ = _serve(JInferenceServer, JRequest, jmodel, jparams,
                          mode="offload", offload=jruntime)
-    ops.counts.reset()
+    ops.reset_counts()
     handles, stats = _serve(InferenceServer, Request, model, params,
                             mode="offload", offload=runtime, device="cpu")
     # every dense FFN of every decode step went through the dispatcher's
     # CPU route (the plain version); nothing launched
-    assert ops.counts.launches == 0
-    assert ops.counts.plain_calls == stats.decode_steps * runtime.n_layers > 0
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    assert ffn.launches == 0
+    assert ffn.plain_calls == stats.decode_steps * runtime.n_layers > 0
     rhandles, _ = _serve(InferenceServer, Request, model, params,
                          device="cpu")
     for h, jh, rh, n in zip(handles, jhandles, rhandles, NEW):
@@ -168,10 +169,11 @@ def test_identity_layout_serves_bundles_like_reference(both):
     assert jruntime.io_summary()["ffn_kernel"] == "bundles"
     jhandles, _ = _serve(JInferenceServer, JRequest, jmodel, jparams,
                          mode="offload", offload=jruntime)
-    ops.counts.reset()
+    ops.reset_counts()
     handles, _ = _serve(InferenceServer, Request, model, params,
                         mode="offload", offload=runtime, device="cpu")
-    assert (ops.counts.launches, ops.counts.plain_calls) == (0, 0)
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    assert (ffn.launches, ffn.plain_calls) == (0, 0)
     for h, jh in zip(handles, jhandles):
         assert h.result.tokens == jh.result.tokens
         assert h.result.io_seconds == jh.result.io_seconds > 0
