@@ -45,6 +45,34 @@ Phases, in order (any failure raises and the script exits non-zero):
      kernel launched decode_steps x 24 times and its plain version never
      ran, prefix_hits >= 1, cow_copies >= 1, preemptions == 0, and after
      `clear_prefix_cache()` the pool checks and is wholly free.
+  8. coact kernel: the co-activation kernel (MᵀM of a [T, N] 0/1 mask)
+     against its plain version at (T, N) = (512, 4096), the offline stage's
+     shape for opt-350m, (1000, 4100), ragged, and (4096, 14336),
+     mistral-7b-relu's d_ff: `torch.equal` in every case (the counts are
+     exact), equal to host numpy for the first two, the same bits over two
+     launches; event ms, profiler device ms cold / warm, plain ms, the
+     bound (bytes over 3.35 TB/s vs int8 operations over 1,979 TOPS), and
+     as yardsticks `torch.mm` on float32 masks (TF32 off) and
+     `torch._int_mm` on int8 masks where the shape allows.
+  9. pack: the offline stage on the slice's model: `build_pack` (512
+     calibration tokens as 8 x 64 from the seed, float32, format v2) into a
+     temporary directory; its trace / counts / search / write seconds and
+     file bytes; 24 coact launches and no plain call; the pack's placements
+     equal the slice runtime's. Then the slice's requests served from the
+     file (`InferenceServer(pack_path=..., verify_checksums=True)`): tokens
+     and per-uid io_seconds equal the slice's in-memory offload run, fused
+     FFN launches = decode steps x 24; then again under seeded recoverable
+     fault plans per layer (transient, latency, corrupt): the same tokens,
+     and the retries and detected corrupt extents the plans imply over the
+     reads each store made (a corrupt event behind a transient on the same
+     attempt is never read). A run without CRC verification is timed
+     beside them.
+ 10. cli: `repro_torch.launch.pack` then `repro_torch.launch.serve --pack
+     --verify-checksums` through `main([...])` on an int8 v2 pack of
+     `--arch qwen2-7b --n-layers 4 --d-model 1024 --d-ff 4096`, served on
+     the card and on the CPU: equal tokens, or a first difference at a
+     top-2 logit margin below 1e-3 (judged on the CPU with the pack's
+     dequantised weights).
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -55,9 +83,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +102,10 @@ PAGED_TOL = 1e-5               # fp32; online softmax, rows in another order
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 PAGED_REPLACES = "src/repro/kernels/swa_decode.py:211"
 PAGED_KERNELS = ("paged_decode_kernel",)
+INT8_OPS = 1979e12             # H100 SXM data sheet, int8 tensor cores, dense
+COACT_SOURCE = "src/repro_torch/kernels/csrc/coact.cu"
+COACT_REPLACES = "src/repro/kernels/coact.py:39"
+COACT_KERNELS = ("coact_transpose_kernel", "coact_mma_kernel")
 ITERS = 30                     # timed launches per kernel measurement
 # the card run's traffic: 4 requests, 32-token prompts, 16 new tokens
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
@@ -360,6 +394,8 @@ def slice_phase(dev, seed: int, n_requests: int, prompt_len: int,
                           "mismatches": mismatches}})
     return {"launches": launches, "model": model, "params": params,
             "runtime": runtime, "reqs": reqs, "max_len": max_len,
+            "offload_results": [(h.uid, h.result.tokens, h.result.io_seconds)
+                                for h in off_handles],
             "main_ms_per_step": {r["mode"]: r["decode_ms_per_step"]
                                  for r in (off_row, res_row)}}
 
@@ -721,6 +757,337 @@ def paged_phase(dev, seed: int, model, params, runtime, reduced: bool) -> dict:
     return {"launches": launches}
 
 
+# -- coact kernel phase ------------------------------------------------------------
+
+COACT_CASES = [
+    # name, T tokens, N neurons, mask density, compare with host numpy
+    ("opt350m_pack_512x4096", 512, 4096, 0.5, True),
+    ("ragged_1000x4100", 1000, 4100, 0.5, True),
+    ("mistral7b_4096x14336", 4096, 14336, 0.5, False),
+]
+REHEARSAL_COACT = [(64, 128), (100, 130), (256, 512)]
+
+
+def coact_bound(T, N):
+    """(bound ms, what bounds it): the mask bytes read once and the f32
+    [N, N] output written once over the HBM rate, vs 2·N²·T int8
+    operations over the int8 tensor rate."""
+    t_bytes = (T * N + 4 * N * N) / HBM_BYTES_PER_S
+    t_ops = 2 * N * N * T / INT8_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_yardsticks(m, flush):
+    """ms of one `torch.mm` on the float32 masks (TF32 off: exact) and of
+    one `torch._int_mm` on int8 masks (None where the shape is refused).
+    Yardsticks only: the port never calls either."""
+    import torch
+    mf = m.to(torch.float32)
+    mm_ms = time_ms(lambda: torch.mm(mf.T, mf), flush)
+    int_mm_ms = None
+    if m.device.type == "cuda":
+        mi = m.to(torch.int8)
+        mit = mi.T.contiguous()
+        try:
+            torch._int_mm(mit, mi)
+            int_mm_ms = time_ms(lambda: torch._int_mm(mit, mi), flush)
+        except RuntimeError as e:          # the shape is refused
+            int_mm_ms = f"refused: {str(e).splitlines()[0][:120]}"
+    return mm_ms, int_mm_ms
+
+
+def coact_kernel_phase(dev, seed: int, reduced: bool) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.coact import coact_accumulate_plain
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    cases = []
+    for i, (name, T, N, density, host) in enumerate(COACT_CASES):
+        if reduced:
+            T, N = REHEARSAL_COACT[i]
+        m = torch.rand((T, N), generator=gen, device=dev) < density
+        out = ops.coact_accumulate(m)
+        ref = coact_accumulate_plain(m)
+        sync(dev)
+        assert out.dtype == torch.float32 and tuple(out.shape) == (N, N), name
+        exact = bool(torch.equal(out, ref))
+        same = bool(torch.equal(out, ops.coact_accumulate(m)))
+        host_equal = None
+        if host:
+            mn = m.cpu().numpy().astype(np.float32)
+            host_equal = bool(np.array_equal(out.cpu().numpy(), mn.T @ mn))
+        err = float((out - ref).abs().max())
+        del ref
+
+        def kernel():
+            return ops.coact_accumulate(m)
+
+        bound_ms, bound_by = coact_bound(T, N)
+        mm_ms, int_mm_ms = library_yardsticks(m, flush)
+        case = dict(
+            case=name, T=T, N=N, density=density, max_abs_err=err,
+            equal=exact, deterministic=same, equal_host_numpy=host_equal,
+            ms=time_ms(kernel, flush),
+            device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
+                                            names=COACT_KERNELS),
+            device_warm_ms=kernel_device_ms(kernel, flush, cold=False,
+                                            names=COACT_KERNELS),
+            plain_ms=time_ms(lambda: coact_accumulate_plain(m), flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_mm_f32_ms=mm_ms, library_int_mm_ms=int_mm_ms)
+        emit({"coact_kernel_case": case})
+        assert exact, f"{name}: kernel counts differ from the plain version"
+        assert same, f"{name}: two launches gave different bits"
+        assert host_equal in (None, True), f"{name}: differs from host numpy"
+        cases.append(case)
+        del out, m
+    del flush
+    return {"cases": cases}
+
+
+# -- pack phase ----------------------------------------------------------------------
+
+# seeded recoverable faults per layer store, over its first reads
+FAULT_READS = 8192
+FAULT_RATES = dict(transient_rate=0.01, latency_rate=0.005, delay_s=1e-4,
+                   corrupt_rate=0.01)
+
+
+def implied_counters(plan, n_reads: int) -> dict:
+    """The retries and detected corrupt extents a recoverable plan implies
+    over a store's first `n_reads` logical reads (every event applies to
+    the first attempt only): a read with a transient or a corrupt event
+    costs one retry; a corrupt event is detected only where no transient
+    event on the same attempt raised before its bytes were read."""
+    retries = corrupt = 0
+    for i in range(n_reads):
+        kinds = {ev.kind for ev in plan.events_at(i)}
+        retries += bool(kinds & {"transient", "corrupt"})
+        corrupt += "corrupt" in kinds and "transient" not in kinds
+    return {"retries": retries, "corrupt_extents": corrupt}
+
+
+def pack_phase(dev, seed: int, sl: dict, tmp: str) -> dict:
+    """The offline stage into a NeuronPack, then the slice's requests
+    served from it, clean and under recoverable faults. The build and the
+    clean pack-served run are the paths under test: counts set to 0 just
+    before each, read just after."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import OffloadedFFNRuntime
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.store import NeuronPack, build_pack, seeded_layer_plans
+
+    model, params, runtime = sl["model"], sl["params"], sl["runtime"]
+    reqs, max_len = sl["reqs"], sl["max_len"]
+    n_layers = runtime.n_layers
+    path = os.path.join(tmp, "opt-350m.npack")
+    ops.reset_counts()
+    report = build_pack(model, params, path, calib_tokens=512, calib_batch=8,
+                        calib_seqlen=64, seed=seed, device=dev)
+    sync(dev)
+    coact = ops.counts["coact_accumulate"]
+    launches, plain_calls = coact.launches, coact.plain_calls
+    pack = NeuronPack(path)
+    same_placements = [bool(np.array_equal(pack.placement(l).placement,
+                                           e.placement.placement))
+                       for l, e in enumerate(runtime.engines)]
+    build_row = {
+        "file_bytes": report.file_bytes, "n_layers": report.n_layers,
+        "n_neurons": report.n_neurons, "bundle_width": report.bundle_width,
+        "version": pack.version, "tokens_traced": report.tokens_traced,
+        "build_s": report.build_seconds, "trace_s": report.trace_seconds,
+        "counts_s": report.counts_seconds, "search_s": report.search_seconds,
+        "write_s": report.write_seconds, "coact_launches": launches,
+        "coact_plain_calls": plain_calls,
+        "placements_equal_runtime": all(same_placements)}
+    emit({"pack_build": build_row})
+    taken, other = ((launches, plain_calls) if dev.type == "cuda"
+                    else (plain_calls, launches))
+    assert other == 0 and taken == n_layers, build_row
+    assert all(same_placements), same_placements
+
+    def serve(**kw):
+        server = InferenceServer(model, params, max_slots=len(reqs),
+                                 max_len=max_len, mode="offload", device=dev,
+                                 **kw)
+        handles = [server.submit(r) for r in reqs]
+        server.drain()
+        sync(dev)
+        io = server.offload.io_summary()
+        server.close()
+        return handles, server.stats, io
+
+    handles_nv, st_nv, io_nv = serve(pack_path=path)
+    ops.reset_counts()
+    handles, st, io = serve(pack_path=path, verify_checksums=True)
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    row = {"run": "pack_clean", "decode_steps": st.decode_steps,
+           "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+           "in_memory_decode_ms_per_step": sl["main_ms_per_step"]["offload"],
+           "ffn_launches": ffn.launches, "ffn_plain_calls": ffn.plain_calls,
+           "coact_launches": ops.counts["coact_accumulate"].launches,
+           "io_seconds_per_token_modeled": io["io_seconds_per_token"],
+           "measured_file_seconds_per_token":
+               io.get("measured_file_seconds_per_token"),
+           "measured_extents_total": io.get("measured_extents_total"),
+           "measured_bytes_total": io.get("measured_bytes_total"),
+           "retries": io["retries"], "corrupt_extents": io["corrupt_extents"],
+           "no_verify_decode_ms_per_step":
+               1e3 * st_nv.decode_seconds / st_nv.decode_steps,
+           "no_verify_measured_file_seconds_per_token":
+               io_nv.get("measured_file_seconds_per_token")}
+    ffn_taken, ffn_other = ((ffn.launches, ffn.plain_calls)
+                            if dev.type == "cuda"
+                            else (ffn.plain_calls, ffn.launches))
+    emit({"pack_serve": row})
+    assert ffn_other == 0 and ffn_taken == st.decode_steps * n_layers > 0, row
+    assert io["ffn_kernel"] == "segments", io["ffn_kernel_decision"]
+    for run in (handles, handles_nv):
+        for h, (uid, tokens, io_s) in zip(run, sl["offload_results"]):
+            assert h.uid == uid and h.result.finish_reason == "length"
+            assert h.result.tokens == tokens, (uid, h.result.tokens, tokens)
+            assert h.result.io_seconds == io_s, (uid, h.result.io_seconds,
+                                                 io_s)
+
+    plans = seeded_layer_plans(seed, n_layers, FAULT_READS, **FAULT_RATES)
+    rt = OffloadedFFNRuntime.from_pack(model.cfg, path, verify_checksums=True,
+                                       fault_plans=plans, device=dev)
+    with rt:
+        chandles, cst, cio = serve(offload=rt)
+        reads = [sum(t.io.measured_ops for t in e.history)
+                 for e in rt.engines]
+    injected = {k: sum(p.injected[k] for p in plans)
+                for k in ("transient", "latency", "corrupt")}
+    implied = [implied_counters(p, n) for p, n in zip(plans, reads)]
+    crow = {"run": "pack_faults", "decode_steps": cst.decode_steps,
+            "decode_ms_per_step": 1e3 * cst.decode_seconds / cst.decode_steps,
+            "reads": sum(reads), "injected": injected,
+            "retries": cio["retries"], "corrupt_extents": cio["corrupt_extents"],
+            "implied": {k: sum(d[k] for d in implied)
+                        for k in ("retries", "corrupt_extents")},
+            "tokens_equal_clean": [h.result.tokens for h in chandles]
+            == [h.result.tokens for h in handles]}
+    emit({"pack_serve": crow})
+    assert crow["tokens_equal_clean"], crow
+    assert max(reads) <= FAULT_READS, crow
+    assert injected["transient"] + injected["corrupt"] > 0, crow
+    assert cio["retries"] == crow["implied"]["retries"], crow
+    assert cio["corrupt_extents"] == crow["implied"]["corrupt_extents"], crow
+    del pack
+    os.remove(path)
+    return {"launches": launches, "build": build_row, "serve": row,
+            "faults": crow}
+
+
+# -- cli phase -------------------------------------------------------------------------
+
+CLI_GEOMETRY = ["--arch", "qwen2-7b", "--n-layers", "4", "--d-model", "1024",
+                "--d-ff", "4096"]
+REHEARSAL_CLI_GEOMETRY = ["--arch", "qwen2-7b", "--n-layers", "2",
+                          "--d-model", "64", "--d-ff", "256"]
+CLI_SERVE = ["--requests", "4", "--prompt-len", "16", "--new-tokens", "8"]
+CLI_MARGIN = 1e-3
+
+
+def pack_weights(params, pack, cfg):
+    """`params` with every dense FFN's weights replaced by the pack's
+    (dequantised) bundles: the weights the offload path computes with."""
+    import torch
+    from repro_torch.models import transformer
+    P = transformer.stack_period(cfg)
+    ffns = cfg.ffn_kinds()
+    d = cfg.d_model
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = []
+    layer = 0
+    for group in params["stack"]:
+        group = {k: dict(v) for k, v in group.items()}
+        for j in range(P):
+            if ffns[j] != "dense":
+                continue
+            b = torch.from_numpy(pack.logical_bundles(layer))
+            ffn = dict(group[f"sub_{j}"]["ffn"])
+            mats = b.split(d, dim=1)
+            if "w_gate" in ffn:
+                ffn["w_gate"] = mats[0].T.contiguous()
+                mats = mats[1:]
+            ffn["w_up"], ffn["w_down"] = mats[0].T.contiguous(), mats[1]
+            group[f"sub_{j}"]["ffn"] = ffn
+            layer += 1
+        out["stack"].append(group)
+    return out
+
+
+def cli_phase(dev, seed: int, tmp: str, reduced: bool) -> dict:
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pack as pack_cli
+    from repro_torch.launch import seeded_model
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.store import NeuronPack
+
+    geom = (REHEARSAL_CLI_GEOMETRY if reduced else CLI_GEOMETRY) + [
+        "--seed", str(seed)]
+    out = os.path.join(tmp, "qwen2-7b-int8.npack")
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    report = pack_cli.main(geom + ["--out", out, "--quantize", "int8",
+                                   "--pack-version", "2", "--device", str(dev)])
+    pack_s = time.perf_counter() - t0
+    coact = ops.counts["coact_accumulate"]
+    args = geom + ["--mode", "offload", "--pack", out, "--verify-checksums"
+                   ] + CLI_SERVE
+    t0 = time.perf_counter()
+    card = serve_cli.main(args + ["--device", str(dev)])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = serve_cli.main(args + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    row = {"pack": {"file_bytes": report.file_bytes,
+                    "quantized": report.quantized, "seconds": pack_s,
+                    "trace_s": report.trace_seconds,
+                    "counts_s": report.counts_seconds,
+                    "search_s": report.search_seconds,
+                    "write_s": report.write_seconds,
+                    "coact_launches": coact.launches,
+                    "coact_plain_calls": coact.plain_calls},
+           "serve_seconds": {"device": card_s, "cpu": cpu_s},
+           "mismatches": []}
+    assert report.quantized and NeuronPack(out).version == 2
+    n_layers = int(geom[geom.index("--n-layers") + 1])
+    assert (coact.launches if dev.type == "cuda" else coact.plain_calls) \
+        == n_layers, row
+    for r in card + cpu:
+        assert r.finish_reason == "length" and len(r.tokens) == 8, r
+    # the serve CLI's prompts: default_rng(seed), one per request, in order
+    cfg = get_config("qwen2-7b", reduced=True, vocab_size=512,
+                     activation="relu", **{
+                         k.lstrip("-").replace("-", "_"): int(v)
+                         for k, v in zip(geom[2:6:2], geom[3:7:2])})
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+               for _ in card]
+    margin_model = None
+    for a, b, prompt in zip(card, cpu, prompts):
+        t = first_divergence(a.tokens, b.tokens)
+        if t is None:
+            continue
+        if margin_model is None:
+            model, params = seeded_model(cfg, seed, "cpu")
+            margin_model = (model, pack_weights(params, NeuronPack(out), cfg))
+        margin = decode_margin(*margin_model, prompt, b.tokens, t, 16 + 8 + 8)
+        row["mismatches"].append({"uid": a.uid, "step": t, "margin": margin})
+        assert margin < CLI_MARGIN, row
+    emit({"cli": row})
+    os.remove(out)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -773,11 +1140,16 @@ def main(argv=None) -> int:
     pkern = paged_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
     pg = paged_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"],
                      reduced=args.cpu_rehearsal)
+    ckern = coact_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        pk = pack_phase(dev, args.seed, sl, tmp)
+        cli_phase(dev, args.seed, tmp, reduced=args.cpu_rehearsal)
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
         return 3
     main_case = kern["cases"][0]
     paged_case = pkern["cases"][0]
+    coact_case = ckern["cases"][0]
     emit({"kernels": [{
         "name": "sparse_ffn_segments_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -800,7 +1172,20 @@ def main(argv=None) -> int:
         "device_warm_ms": paged_case["device_warm_ms"],
         "plain_ms": paged_case["plain_ms"],
         "bound_ms": paged_case["bound_ms"],
-        "bound_by": paged_case["bound_by"], "library_ms": None}]})
+        "bound_by": paged_case["bound_by"], "library_ms": None}, {
+        # the offline stage's shape (T = 512, N = 4096); every case above
+        "name": "coact_accumulate", "route": "cuda",
+        "source": COACT_SOURCE, "replaces": COACT_REPLACES,
+        "launches": pk["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in ckern["cases"]),
+        "ms": coact_case["ms"],
+        "device_cold_ms": coact_case["device_cold_ms"],
+        "device_warm_ms": coact_case["device_warm_ms"],
+        "plain_ms": coact_case["plain_ms"],
+        "bound_ms": coact_case["bound_ms"],
+        "bound_by": coact_case["bound_by"],
+        "library_ms": coact_case["library_mm_f32_ms"],
+        "library_int_mm_ms": coact_case["library_int_mm_ms"]}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ names so each counterpart is easy to find. It imports torch, numpy and the
 standard library only — never jax, never `repro`. Entry points run on the
 GPU unless the caller passes device="cpu".
 
-This slice serves decoder-only dense models end to end through
-`serving.server.InferenceServer` in resident and offload modes; the offload
-FFN runs through the hand-written Hopper kernel in
-`kernels/csrc/sparse_ffn_fused.cu`.
+It serves decoder-only dense models end to end through
+`serving.server.InferenceServer` in resident and offload modes, from an
+in-memory store or a NeuronPack file (`store/`), with the offline stage
+that builds the pack (`store.packer.build_pack`, `launch/pack.py`). The
+hand-written Hopper kernels are in `kernels/csrc/`: the fused segment FFN,
+paged decode attention and the co-activation counts.
 """

@@ -1,15 +1,18 @@
 """RIPPLE core, PyTorch port: neuron co-activation linking for
 flash-offloaded LLM inference.
 
-Offline stage: `coactivation` (pattern extraction) -> `placement` (greedy
-Hamiltonian-path search). Online stage: `collapse` (access collapse),
-`cache` (linking-aligned S3-FIFO), `storage` (UFS device model + neuron
-store), `engine` (the batched serving pipeline), `pipeline`
-(double-buffered I/O-compute overlap model), `sparse_ffn` (FFN math over
-flash bundles, in torch).
+Offline stage: `trace` (activation masks, disk shards) -> `coactivation`
+(pattern extraction: counts on the device through the coact kernel) ->
+`placement` (greedy Hamiltonian-path search). Online stage: `collapse`
+(access collapse), `cache` (linking-aligned S3-FIFO), `storage` (UFS
+device model + neuron store), `engine` (the batched serving pipeline),
+`pipeline` (double-buffered I/O-compute overlap model), `sparse_ffn` (FFN
+math over flash bundles, in torch).
 
-Everything but `sparse_ffn` is framework-free numpy, kept as a copy of the
-reference package so the two make identical decisions.
+`collapse`, `placement`, `cache`, `storage`, `engine` and `pipeline` are
+framework-free numpy, kept as copies of the reference package so the two
+make identical decisions; `coactivation` gives the reference's bits because
+its counts are exact.
 """
 from repro_torch.core.cache import (ArrayLinkingAlignedCache, ArrayS3FIFOCache,
                                     CacheStats, FIFOCache, LRUCache,

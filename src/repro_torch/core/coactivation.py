@@ -10,54 +10,93 @@ column activated by the same intermediate value) are the unit of accounting — 
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Union
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, check_same_device, resolve_device
+from repro_torch.kernels import ops
+
+MaskLike = Union[np.ndarray, torch.Tensor]
 
 
-@dataclasses.dataclass
 class CoActivationStats:
-    """Accumulates the adjacency (co-activation count) matrix for one FFN block.
+    """Accumulates the adjacency (co-activation count) matrix for one FFN
+    block on `device` (default cuda; the CPU only when asked for).
 
-    Memory: the dense pair-count matrix is float32 [n, n]; for the largest model
-    in the paper (n=43008) this is ~7.4 GB, so large-n users should accumulate
-    per-layer (layers are independent, as the paper parallelises over layers).
+    `pair_counts` is a float32 [n, n] tensor on the device and `counts` an
+    int64 [n] tensor; each `update` adds the block's MᵀM from
+    `ops.coact_accumulate` (the CUDA kernel on the card, its plain version on
+    the CPU) in place, the order of the reference's `+=`. The counts are
+    exact integers, so the float32 bits equal the reference's numpy
+    accumulation while each entry stays below 2^24 co-activations (the
+    reference's float32 buffer has the same limit). Masks given on the host
+    are copied to the device once for the count.
+
+    The probabilities and distances (`p_single`, `p_pair`,
+    `distance_matrix`, `activation_rate`) come back to the host as numpy,
+    computed with the reference's numpy expressions, because the placement
+    search runs in numpy: the [n, n] matrix crosses to the host once per
+    call. Memory: the pair matrix is 4·n² bytes (n = 43008, the largest
+    model in the paper, is about 7.4 GB), so accumulate per layer.
     """
 
-    n_neurons: int
-
-    def __post_init__(self) -> None:
-        self.counts = np.zeros(self.n_neurons, dtype=np.int64)
-        self.pair_counts = np.zeros((self.n_neurons, self.n_neurons), dtype=np.float32)
+    def __init__(self, n_neurons: int, device: DeviceLike = None) -> None:
+        self.n_neurons = n_neurons
+        self.device = resolve_device(device)
+        self.counts = torch.zeros(n_neurons, dtype=torch.int64,
+                                  device=self.device)
+        self.pair_counts = torch.zeros((n_neurons, n_neurons),
+                                       dtype=torch.float32, device=self.device)
         self.n_tokens = 0
 
-    def update(self, masks: np.ndarray) -> None:
-        """masks: [T, n] bool/0-1 activation mask for T tokens."""
-        masks = np.asarray(masks)
-        if masks.ndim == 1:
-            masks = masks[None]
-        if masks.shape[-1] != self.n_neurons:
-            raise ValueError(f"mask width {masks.shape[-1]} != n_neurons {self.n_neurons}")
-        m = masks.astype(np.float32)
-        self.counts += masks.astype(np.int64).sum(axis=0)
-        # A += M^T M — co-activation outer-product accumulation. This is the
-        # offline hot spot; kept in numpy so decisions match the reference.
-        self.pair_counts += m.T @ m
-        self.n_tokens += masks.shape[0]
+    def _as_masks(self, masks: MaskLike) -> torch.Tensor:
+        if isinstance(masks, torch.Tensor):
+            check_same_device(self.device, masks.device, "the mask block")
+            m = masks
+        else:
+            m = torch.from_numpy(np.ascontiguousarray(masks)).to(self.device)
+        if m.ndim == 1:
+            m = m[None]
+        if m.shape[-1] != self.n_neurons:
+            raise ValueError(f"mask width {m.shape[-1]} != n_neurons "
+                             f"{self.n_neurons}")
+        if self.device.type == "cuda" and m.dtype not in (torch.bool,
+                                                          torch.uint8):
+            m = m != 0          # the kernel reads 0/1 bytes
+        return m
+
+    def update(self, masks: MaskLike) -> None:
+        """masks: [T, n] bool/0-1 activation mask for T tokens (numpy, or a
+        tensor on this stats' device)."""
+        m = self._as_masks(masks)
+        self.counts += m.to(torch.int64).sum(dim=0)
+        # A += MᵀM — the offline hot spot, through the coact kernel on CUDA
+        self.pair_counts += ops.coact_accumulate(m)
+        self.n_tokens += m.shape[0]
+
+    # -- host views -----------------------------------------------------------
+    def counts_numpy(self) -> np.ndarray:
+        return self.counts.cpu().numpy()
+
+    def pair_counts_numpy(self) -> np.ndarray:
+        return self.pair_counts.cpu().numpy()
 
     # -- probabilities (Eq. 1, 2) -------------------------------------------
     def p_single(self) -> np.ndarray:
-        total = self.counts.sum()
+        counts = self.counts_numpy()
+        total = counts.sum()
         if total == 0:
             return np.zeros(self.n_neurons)
-        return self.counts / total
+        return counts / total
 
     def p_pair(self) -> np.ndarray:
-        total = self.pair_counts.sum()
+        pair = self.pair_counts_numpy()
+        total = pair.sum()
         if total == 0:
-            return np.zeros_like(self.pair_counts)
-        return self.pair_counts / total
+            return np.zeros_like(pair)
+        return pair / total
 
     # -- distances (Eq. 3) ---------------------------------------------------
     def distance_matrix(self) -> np.ndarray:
@@ -70,52 +109,56 @@ class CoActivationStats:
         """Per-neuron empirical activation probability (per token)."""
         if self.n_tokens == 0:
             return np.zeros(self.n_neurons)
-        return self.counts / self.n_tokens
+        return self.counts_numpy() / self.n_tokens
 
     def merge(self, other: "CoActivationStats",
               inplace: bool = False) -> "CoActivationStats":
-        """Combine two accumulators. `inplace=True` folds `other` into `self`
-        (and returns self) without allocating a third [n, n] pair matrix —
-        what the shard-streaming path uses to keep one running matrix."""
+        """Combine two accumulators on the same device. `inplace=True` folds
+        `other` into `self` (and returns self) without allocating a third
+        [n, n] pair matrix."""
         if other.n_neurons != self.n_neurons:
             raise ValueError("cannot merge stats of different widths")
+        check_same_device(self.device, other.device, "the other stats")
         if inplace:
             self.counts += other.counts
             self.pair_counts += other.pair_counts
             self.n_tokens += other.n_tokens
             return self
-        out = CoActivationStats(self.n_neurons)
+        out = CoActivationStats(self.n_neurons, device=self.device)
         out.counts = self.counts + other.counts
         out.pair_counts = self.pair_counts + other.pair_counts
         out.n_tokens = self.n_tokens + other.n_tokens
         return out
 
 
-def stats_from_masks(masks: np.ndarray) -> CoActivationStats:
-    s = CoActivationStats(masks.shape[-1])
+def stats_from_masks(masks: MaskLike,
+                     device: DeviceLike = None) -> CoActivationStats:
+    s = CoActivationStats(masks.shape[-1], device=device)
     s.update(masks)
     return s
 
 
-def stats_from_mask_shards(shards: Iterable[np.ndarray],
-                           n_neurons: Optional[int] = None) -> CoActivationStats:
+def stats_from_mask_shards(shards: Iterable[MaskLike],
+                           n_neurons: Optional[int] = None,
+                           device: DeviceLike = None) -> CoActivationStats:
     """`stats_from_masks` over a shard iterator (traces larger than RAM).
 
-    Each shard is accumulated into its own `CoActivationStats` and folded in
-    via `CoActivationStats.merge(inplace=True)`, so only one shard's masks,
-    its [n, n] pair matrix, and the single running pair matrix are resident
-    at a time — the entry point the offline packer uses with
-    `repro_torch.core.trace.iter_trace_shards`. An empty iterator needs
-    `n_neurons` to size the (zero) stats.
+    Each shard's MᵀM is added into one running pair matrix on `device`, so
+    only one shard's masks, its [n, n] product and the running matrix are
+    resident at a time — the entry point the offline packer uses with
+    `repro_torch.core.trace.iter_trace_shards`. The sums are those of the
+    reference's per-shard merge, bit for bit (exact integers). An empty
+    iterator needs `n_neurons` to size the (zero) stats.
     """
     out: Optional[CoActivationStats] = None
     for masks in shards:
-        s = stats_from_masks(np.asarray(masks))
-        out = s if out is None else out.merge(s, inplace=True)
+        if out is None:
+            out = CoActivationStats(masks.shape[-1], device=device)
+        out.update(masks)
     if out is None:
         if n_neurons is None:
             raise ValueError("empty shard iterator and no n_neurons given")
-        out = CoActivationStats(n_neurons)
+        out = CoActivationStats(n_neurons, device=device)
     return out
 
 

@@ -14,15 +14,16 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import paged_decode, sparse_ffn
+from repro_torch.kernels import coact, paged_decode, sparse_ffn
 from repro_torch.kernels.build import Counts
 
 __all__ = ["counts", "reset_counts", "sparse_ffn_segments_fused",
-           "paged_decode_attention"]
+           "paged_decode_attention", "coact_accumulate"]
 
 counts: Dict[str, Counts] = {
     "sparse_ffn_segments_fused": sparse_ffn.counts,
     "paged_decode": paged_decode.counts,
+    "coact_accumulate": coact.counts,
 }
 
 
@@ -81,3 +82,15 @@ def paged_decode_attention(
         return paged_decode.paged_decode_attention_cuda(
             q, k_pages, v_pages, page_tables, cur_pos, k_scale, v_scale)
     raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+
+
+def coact_accumulate(masks: torch.Tensor) -> torch.Tensor:   # [T, N]
+    """Co-activation counts MᵀM of a [T, N] mask block, a fresh f32 [N, N],
+    exact (each entry below 2^24). On CUDA the mask must be bool or uint8;
+    the plain version on the CPU also takes 0/1 floats."""
+    if masks.device.type == "cpu":
+        coact.counts.plain_calls += 1
+        return coact.coact_accumulate_plain(masks)
+    if masks.device.type == "cuda":
+        return coact.coact_accumulate_cuda(masks)
+    raise ValueError(f"coact_accumulate: unsupported device {masks.device}")

@@ -19,9 +19,14 @@ Two modes, both front-ends:
            placement-ordered flash layout (or, on an identity layout, from
            the bundle payloads actually read).
 
+The flash layer is either in-memory `NeuronStore`s built from the model's
+bundles (`build_offload_runtime`) or `FileNeuronStore`s over an on-disk
+NeuronPack (`OffloadedFFNRuntime.from_pack`, `pack_path=`), whose every
+collapsed extent is a real positional file read.
+
 Not ported yet, and rejected with NotImplementedError: the asynchronous
-prefetch pipeline (`prefetch=True`), trained predictors (`oracle=False`),
-serving from an on-disk NeuronPack (`pack_path`), and lookahead training.
+prefetch pipeline (`prefetch=True`), trained predictors (`oracle=False`,
+`predictors=`), and lookahead (`lookahead=`, lookahead training).
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.core.engine import BatchStepResult, EngineConfig, OffloadEngine
 from repro_torch.core.pipeline import IOScheduler
 from repro_torch.core.placement import PlacementResult
 from repro_torch.core.sparse_ffn import sparse_ffn_from_bundles
-from repro_torch.core.storage import UFSDevice
+from repro_torch.core.storage import NeuronStore, UFSDevice
 from repro_torch.device import DeviceLike, check_same_device, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
@@ -124,7 +129,8 @@ def _resolve_ffn_kernel(requested: str, placements: List[PlacementResult],
 
 class OffloadedFFNRuntime:
     """Per-layer RIPPLE offload state: one `OffloadEngine` per dense FFN
-    layer (in-memory `NeuronStore` over the simulated UFS device), the
+    layer over its flash store (an in-memory `NeuronStore` over the
+    simulated UFS device, or a `FileNeuronStore` over a NeuronPack), the
     placements, and the device-resident weights of the fused segment path.
 
     The decode loop is serial: each layer's engine step runs on the host,
@@ -135,22 +141,36 @@ class OffloadedFFNRuntime:
     def __init__(
         self,
         cfg: ModelConfig,
-        bundles_per_layer: List[np.ndarray],          # [L][n, width]
-        placements: List[PlacementResult],
+        bundles_per_layer: Optional[List[np.ndarray]] = None,   # [L][n, width]
+        placements: Optional[List[PlacementResult]] = None,
         ufs_device: Optional[UFSDevice] = None,
         engine_cfg: Optional[EngineConfig] = None,
         bundle_bytes: Optional[int] = None,
         *,
+        stores: Optional[List[NeuronStore]] = None,
         device: DeviceLike = None,
     ) -> None:
+        """Either raw `bundles_per_layer` + `placements` (in-memory stores are
+        built per layer) or prebuilt `stores` — e.g. `FileNeuronStore`s over
+        a NeuronPack, the `from_pack` path."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.engine_cfg = engine_cfg or EngineConfig()
-        self.engines = [
-            OffloadEngine(b, placement=pl, device=ufs_device,
-                          config=engine_cfg, bundle_bytes=bundle_bytes)
-            for b, pl in zip(bundles_per_layer, placements)
-        ]
+        if stores is not None:
+            if bundles_per_layer is not None or placements is not None:
+                raise ValueError("pass either prebuilt `stores` or raw "
+                                 "bundles_per_layer/placements, not both")
+            self.engines = [OffloadEngine.from_store(s, config=engine_cfg)
+                            for s in stores]
+        else:
+            if bundles_per_layer is None or placements is None:
+                raise ValueError("OffloadedFFNRuntime needs bundles_per_layer"
+                                 " + placements, or `stores`")
+            self.engines = [
+                OffloadEngine(b, placement=pl, device=ufs_device,
+                              config=engine_cfg, bundle_bytes=bundle_bytes)
+                for b, pl in zip(bundles_per_layer, placements)
+            ]
         self.n_mats = 3 if cfg.activation == "silu" else 2
         self.ffn_kernel, self.ffn_kernel_reason = _resolve_ffn_kernel(
             self.engine_cfg.ffn_kernel,
@@ -162,6 +182,57 @@ class OffloadedFFNRuntime:
         self._segment_weights: List[tuple] = (
             [self._segment_weight_mats(l) for l in range(len(self.engines))]
             if self.ffn_kernel == "segments" else [])
+
+    @classmethod
+    def from_pack(
+        cls,
+        cfg: ModelConfig,
+        pack,                               # path | NeuronPack
+        ufs_device: Optional[UFSDevice] = None,
+        engine_cfg: Optional[EngineConfig] = None,
+        predictors=None,
+        lookahead=None,
+        verify_checksums: bool = False,
+        retry=None,
+        fault_plans=None,
+        *,
+        device: DeviceLike = None,
+    ) -> "OffloadedFFNRuntime":
+        """Serve straight from an on-disk NeuronPack artifact: one
+        `FileNeuronStore` per layer, placements read from the pack, every
+        collapsed extent a REAL positional file read. Raises ValueError when
+        the pack's geometry does not match the model config (layer count,
+        neuron count, bundle width).
+
+        `verify_checksums=True` has every store check each extent read
+        against the pack's per-bundle CRC32 table (v2 packs only; detected
+        corruption triggers a re-read). `retry` overrides the stores'
+        transient-failure `RetryPolicy`; `fault_plans` (one
+        `repro_torch.store.faults.FaultPlan` per layer, None entries
+        allowed) arms deterministic fault injection below the retry layer.
+        The segment path's weights go to `device` (default cuda).
+        `predictors` and `lookahead` raise NotImplementedError (their slice
+        is not ported)."""
+        from repro_torch.store.file_store import FileNeuronStore
+        from repro_torch.store.format import NeuronPack
+
+        if predictors is not None or lookahead is not None:
+            raise NotImplementedError("predictors= and lookahead= are not "
+                                      "ported to PyTorch yet")
+        device = resolve_device(device)
+        pack = NeuronPack.open(pack)
+        validate_pack_for_model(pack, cfg)
+        ecfg = engine_cfg or EngineConfig()
+        if fault_plans is not None and len(fault_plans) != pack.n_layers:
+            raise ValueError(f"fault_plans covers {len(fault_plans)} layers, "
+                             f"pack has {pack.n_layers}")
+        stores = [FileNeuronStore(
+                      pack, l, device=ufs_device,
+                      reads_per_bundle=ecfg.reads_per_bundle,
+                      retry=retry, verify_checksums=verify_checksums,
+                      fault_plan=fault_plans[l] if fault_plans else None)
+                  for l in range(pack.n_layers)]
+        return cls(cfg, stores=stores, engine_cfg=engine_cfg, device=device)
 
     # -- whole decode batch, per-request attribution -------------------------
     def ffn_apply_batch(
@@ -298,7 +369,7 @@ class OffloadedFFNRuntime:
         runs = (np.concatenate([np.asarray(t.run_lengths) for t in tokens])
                 if tokens else np.zeros(0, dtype=np.int64))
         per_layer = [e.summary() for e in self.engines]
-        return {
+        out = {
             # resolved FFN path + why (the EngineConfig may have said "auto")
             "ffn_kernel": self.ffn_kernel,
             "ffn_kernel_decision": self.ffn_kernel_reason,
@@ -308,13 +379,26 @@ class OffloadedFFNRuntime:
             "effective_bandwidth": useful / io_s if io_s else 0.0,
             "cache_hit_rate": hits / accesses if accesses else 0.0,
             "ops_per_token": sum(s["ops_per_token"] for s in per_layer),
-            # fault-tolerance counters of the reference's surface: zero on
-            # the in-memory store this slice serves from
+            # fault-tolerance counters, always present (exactly zero on the
+            # clean path): retries / corrupt_extents flow up from the stores'
+            # IOStats; no prefetch worker runs yet, so nothing restarts
             "retries": sum(t.io.retries for t in tokens),
             "corrupt_extents": sum(t.io.corrupt_extents for t in tokens),
             "degraded_steps": sum(t.io.degraded_steps for t in tokens),
             "worker_restarts": 0,
         }
+        # dual accounting: wall-clock of REAL file reads, when the stores
+        # perform any (FileNeuronStore over a NeuronPack) — alongside, never
+        # instead of, the modeled device seconds above
+        meas_ops = sum(t.io.measured_ops for t in tokens)
+        if meas_ops:
+            n_tok = max(max(len(e.history) for e in self.engines), 1)
+            out["measured_file_seconds_per_token"] = (
+                sum(t.io.measured_seconds for t in tokens) / n_tok)
+            out["measured_extents_total"] = meas_ops
+            out["measured_bytes_total"] = sum(t.io.measured_bytes
+                                              for t in tokens)
+        return out
 
     def predict_step_io_seconds(self, unions) -> float:
         """Modeled flash seconds one decode step serving `unions` (a per-layer
@@ -333,8 +417,8 @@ class OffloadedFFNRuntime:
             e.reset_stats()
 
     def close(self) -> None:
-        """Close every layer store (a no-op for the in-memory store).
-        Idempotent."""
+        """Close every layer store (releases `FileNeuronStore` fds and
+        memmaps; a no-op for the in-memory store). Idempotent."""
         for e in self.engines:
             e.store.close()
 
@@ -353,14 +437,45 @@ def dense_ffn_layer_count(cfg: ModelConfig) -> int:
                                      for k in cfg.ffn_kinds()[:P])
 
 
+def check_pack_path(mode: str, offload) -> None:
+    """`pack_path=` is an alternative to `offload=` and needs offload mode."""
+    if offload is not None:
+        raise ValueError("pass either `offload` or `pack_path`, not both")
+    if mode != "offload":
+        raise ValueError("pack_path= requires mode='offload'")
+
+
+def validate_pack_for_model(pack, cfg: ModelConfig) -> None:
+    """Submit-time geometry check: a NeuronPack can only serve a model whose
+    dense-FFN layer count, neuron count (d_ff), and bundle width
+    (n_mats * d_model) it matches. Packs built by the offline packer also
+    record d_model / n_mats / activation in `meta`, which is checked when
+    present — bundle_width alone cannot distinguish a [gate|up|down] silu
+    bundle from an [up|down] relu bundle of 1.5x the d_model. Raises
+    ValueError listing every mismatch."""
+    n_mats = 3 if cfg.activation == "silu" else 2
+    expected = dict(n_layers=dense_ffn_layer_count(cfg), n_neurons=cfg.d_ff,
+                    bundle_width=n_mats * cfg.d_model)
+    mismatches = [f"{k}: pack has {getattr(pack, k)}, model needs {v}"
+                  for k, v in expected.items() if getattr(pack, k) != v]
+    meta = getattr(pack, "meta", None) or {}
+    mismatches += [
+        f"meta.{k}: pack built for {meta[k]!r}, model is {v!r}"
+        for k, v in (("d_model", cfg.d_model), ("n_mats", n_mats),
+                     ("activation", cfg.activation))
+        if k in meta and meta[k] != v]
+    if mismatches:
+        raise ValueError(
+            f"NeuronPack {pack.path} does not fit this model config: "
+            + "; ".join(mismatches))
+
+
 def reject_unported(*, prefetch: bool = False, oracle: bool = True,
-                    pack_path: Optional[str] = None,
                     swa: bool = False) -> None:
     """Raise NotImplementedError for serving options whose slice has not
     landed in the port yet (they are never silently ignored)."""
     unported = [(prefetch, "the prefetch pipeline (prefetch=True)"),
                 (not oracle, "trained predictors (oracle=False)"),
-                (pack_path is not None, "serving from a NeuronPack (pack_path)"),
                 (swa, "sliding-window caches (swa=True)")]
     for hit, what in unported:
         if hit:
@@ -371,7 +486,10 @@ class ServingEngine:
     """One-shot batch front-end, a thin compatibility wrapper:
     `serve(requests)` submits every request to a fresh `InferenceServer`
     (one slot per request) and drains it. Results come back in request
-    order."""
+    order. `pack_path` loads the offload runtime from an on-disk NeuronPack
+    (`OffloadedFFNRuntime.from_pack`, geometry-validated against the model
+    config) instead of a caller-built runtime; the engine then owns it and
+    closes it."""
 
     def __init__(self, model: Model, params: Any, max_len: int = 512,
                  swa: bool = False, mode: str = "resident",
@@ -382,10 +500,13 @@ class ServingEngine:
                  device: DeviceLike = None):
         if mode not in ("resident", "offload"):
             raise ValueError(f"unknown serving mode {mode!r}")
-        reject_unported(prefetch=prefetch, oracle=oracle, pack_path=pack_path,
-                        swa=swa)
+        reject_unported(prefetch=prefetch, oracle=oracle, swa=swa)
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
+        if pack_path is not None:
+            check_pack_path(mode, offload)
+            offload = OffloadedFFNRuntime.from_pack(model.cfg, pack_path,
+                                                    device=self.device)
         if mode == "offload" and offload is None:
             raise ValueError("mode='offload' needs an OffloadedFFNRuntime")
         self.model = model
@@ -393,10 +514,14 @@ class ServingEngine:
         self.max_len = max_len
         self.mode = mode
         self.offload = offload
+        self._owns_offload = pack_path is not None   # we built it: we close it
         self.scheduler = scheduler or IOScheduler(overlap=True)
 
     def close(self) -> None:
-        """Nothing to release: the caller owns the offload runtime."""
+        """Close the offload runtime's layer stores when this engine built
+        the runtime itself (pack_path=); a caller's runtime stays open."""
+        if self.offload is not None and self._owns_offload:
+            self.offload.close()
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -436,9 +561,10 @@ def build_offload_runtime(
     model's dense-FFN weights into flash bundles, one engine per dense layer.
 
     `use_placement=False` keeps the identity layout (the LLMFlash-style
-    baseline). The calibration forward runs on `device` (default cuda); the
-    co-activation statistics and the placement search run on the host in
-    numpy, exactly as in the reference, so both make the same placements
+    baseline). The calibration forward and the co-activation counts run on
+    `device` (default cuda: the masks stay on the card and go through the
+    coact kernel); the counts are exact, and the placement search runs on
+    the host in numpy as in the reference, so both make the same placements
     from the same masks. `ufs_device` is the simulated flash device model.
     """
     from repro_torch.core.coactivation import stats_from_masks
@@ -463,9 +589,10 @@ def build_offload_runtime(
     placements = []
     for dense_idx in range(len(bundles)):
         if use_placement:
-            masks = (pre_act[dense_idx] > 0).reshape(-1, cfg.d_ff).cpu().numpy()
+            masks = (pre_act[dense_idx] > 0).reshape(-1, cfg.d_ff)
             placements.append(search_placement(
-                stats_from_masks(masks).distance_matrix(), mode="auto"))
+                stats_from_masks(masks, device=device).distance_matrix(),
+                mode="auto"))
         else:
             placements.append(identity_placement(cfg.d_ff))
     del pre_act

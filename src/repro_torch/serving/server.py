@@ -57,7 +57,7 @@ from repro_torch.models.transformer import stack_decode_step_layerwise
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs import request_timeline as _build_request_timeline
 from repro_torch.serving.engine import (OffloadedFFNRuntime, Request, Result,
-                                        reject_unported)
+                                        check_pack_path, reject_unported)
 from repro_torch.serving.paging import PagePool, cdiv
 from repro_torch.utils import logger, stable_hash
 
@@ -184,8 +184,15 @@ class InferenceServer:
     only, trading possible page-pressure preemption for higher admitted
     concurrency. `cfg.kv_quant` selects the int8 cache, paged or not.
 
+    `pack_path` loads the offload runtime from an on-disk NeuronPack
+    (`OffloadedFFNRuntime.from_pack`, geometry-validated against the model
+    config; `verify_checksums=True` checks every extent read against the
+    pack's CRCs) instead of a caller-built `offload=` runtime, and requires
+    `mode="offload"`; the server then owns the runtime and `close()` closes
+    its layer stores.
+
     Options whose slice has not been ported (`prefetch=True`,
-    `oracle=False`, `pack_path`, `swa`) raise NotImplementedError.
+    `oracle=False`, `swa`) raise NotImplementedError.
     """
 
     def __init__(self, model: Model, params: Any, *, max_slots: int = 4,
@@ -195,6 +202,7 @@ class InferenceServer:
                  oracle: bool = True, prefetch: bool = False,
                  seed: int = 0, decode_fn=None, prefill_fn=None,
                  pack_path: Optional[str] = None,
+                 verify_checksums: bool = False,
                  queue_limit: Optional[int] = None,
                  ttft_slo_s: Optional[float] = None,
                  itl_slo_s: Optional[float] = None,
@@ -213,23 +221,29 @@ class InferenceServer:
         if page_size is not None and swa:
             raise ValueError("paged KV cache does not combine with swa "
                              "(sliding-window rings are per-slot, not paged)")
-        reject_unported(prefetch=prefetch, oracle=oracle, pack_path=pack_path,
-                        swa=swa)
+        reject_unported(prefetch=prefetch, oracle=oracle, swa=swa)
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
         cfg = model.cfg
-        if mode == "offload":
-            if offload is None:
-                raise ValueError("mode='offload' needs an OffloadedFFNRuntime")
-            if cfg.family != "dense":
-                raise ValueError("offload serving covers dense decoder-only archs")
-            check_same_device(self.device, offload.device, "the offload runtime")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if queue_limit is not None and queue_limit < 1:
             raise ValueError("queue_limit must be >= 1 (or None = unbounded)")
         if stall_limit < 1:
             raise ValueError("stall_limit must be >= 1")
+        if pack_path is not None:
+            check_pack_path(mode, offload)
+            offload = OffloadedFFNRuntime.from_pack(
+                cfg, pack_path, verify_checksums=verify_checksums,
+                device=self.device)
+        elif verify_checksums:
+            raise ValueError("verify_checksums= applies to pack_path= only")
+        if mode == "offload":
+            if offload is None:
+                raise ValueError("mode='offload' needs an OffloadedFFNRuntime")
+            if cfg.family != "dense":
+                raise ValueError("offload serving covers dense decoder-only archs")
+            check_same_device(self.device, offload.device, "the offload runtime")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -237,6 +251,7 @@ class InferenceServer:
         self.max_len = max_len
         self.mode = mode
         self.offload = offload
+        self._owns_offload = pack_path is not None   # we built it: we close it
         self.scheduler = scheduler or IOScheduler(overlap=True)
         self.stats = ServerStats(n_slots=max_slots)
         self.queue_limit = queue_limit
@@ -621,8 +636,12 @@ class InferenceServer:
         return n
 
     def close(self) -> None:
-        """Nothing to release: the caller owns the offload runtime (no
-        prefetch worker runs in this slice)."""
+        """Close the offload runtime's layer stores when this server built
+        the runtime itself (pack_path=); a caller's runtime stays open (no
+        prefetch worker runs in the port yet). Idempotent; the server stays
+        usable for inspection."""
+        if self.offload is not None and self._owns_offload:
+            self.offload.close()
 
     def __enter__(self) -> "InferenceServer":
         return self

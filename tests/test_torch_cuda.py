@@ -1,5 +1,6 @@
 """The port on the card: the Hopper kernels against their plain versions,
-and the servers going through them (offload FFNs, paged decode attention).
+and the servers going through them (offload FFNs, paged decode attention,
+the offline stage's co-activation counts and serving from its pack).
 
 Every test here needs a CUDA card and the CUDA toolkit (`nvcc` builds the
 kernel at first use); on a machine without a card each one skips with
@@ -12,6 +13,8 @@ over D and over a segment's neurons in another order than the plain
 version's matmuls; rtol = atol = 1e-5 for the paged-attention kernel,
 whose online softmax sums over the rows in another order than the plain
 version's softmax and einsum.
+The co-activation kernel has no tolerance: its counts are exact integers,
+compared with `torch.equal`.
 """
 import numpy as np
 import pytest
@@ -249,3 +252,109 @@ def test_paged_server_runs_the_kernel_on_card(dev, mode):
     for h, c in zip(handles, contiguous):
         assert h.result.finish_reason == "length"
         assert h.result.tokens == c.result.tokens
+
+
+# -- co-activation counts --------------------------------------------------------
+
+def _coact_masks(dev, T, N, dtype, seed=0):
+    rng = np.random.default_rng(seed + T * 7 + N)
+    if dtype == "u8_values":       # any byte values: counted as values
+        m = rng.integers(0, 256, (T, N)).astype(np.uint8)
+    else:
+        m = (rng.random((T, N)) < 0.3).astype(
+            bool if dtype == "bool" else np.uint8)
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("T,N", [(1, 1), (17, 50), (64, 128), (100, 300),
+                                 (256, 256), (1000, 4100)])
+@pytest.mark.parametrize("dtype", ["bool", "uint8"])
+def test_coact_kernel_equals_plain_on_card(dev, T, N, dtype):
+    """Exact: `torch.equal` with the plain version (float32 products of 0/1
+    masks, TF32 off), ragged and tile-multiple shapes; the same bits on a
+    second launch; the counts' own invariants."""
+    from repro_torch.kernels.coact import coact_accumulate_plain
+    m = _coact_masks(dev, T, N, dtype)
+    ops.reset_counts()
+    a = ops.coact_accumulate(m)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (1, 0)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.float32 and tuple(a.shape) == (N, N)
+    assert torch.equal(a, coact_accumulate_plain(m))
+    assert torch.equal(a, ops.coact_accumulate(m))
+    assert torch.equal(a, a.T)
+    assert torch.equal(torch.diagonal(a), m.to(torch.float32).sum(0))
+
+
+def test_coact_kernel_takes_views_and_byte_values(dev):
+    from repro_torch.kernels.coact import coact_accumulate_plain
+    m = _coact_masks(dev, 96, 70, "bool")
+    view = m.T.contiguous().T                   # a strided view
+    assert not view.is_contiguous()
+    assert torch.equal(ops.coact_accumulate(view), coact_accumulate_plain(m))
+    sliced = _coact_masks(dev, 80, 300, "uint8")[5:70, 13:250]
+    assert torch.equal(ops.coact_accumulate(sliced),
+                       coact_accumulate_plain(sliced))
+    values = _coact_masks(dev, 64, 96, "u8_values")
+    assert torch.equal(ops.coact_accumulate(values),
+                       coact_accumulate_plain(values))
+    assert torch.equal(ops.coact_accumulate(m[:0]),
+                       torch.zeros((70, 70), device=dev))
+
+
+def test_coact_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.coact import coact_accumulate_cuda
+    m = _coact_masks(dev, 8, 16, "bool")
+    with pytest.raises(ValueError, match="bool or uint8"):
+        coact_accumulate_cuda(m.float())
+    with pytest.raises(ValueError, match=r"\[T, N\]"):
+        coact_accumulate_cuda(m[None])
+    with pytest.raises(ValueError, match="CUDA device"):
+        coact_accumulate_cuda(m.cpu())
+
+
+def test_pack_built_and_served_on_card(dev, tmp_path):
+    """A tiny `build_pack` on the card counts every layer through the
+    kernel and makes the in-memory runtime's placements; the server built
+    from its file gives that runtime's tokens and per-uid I/O seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, build_offload_runtime
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.store import NeuronPack, build_pack
+    cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
+                     n_layers=2, vocab_size=128)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    path = str(tmp_path / "m.npack")
+    ops.reset_counts()
+    build_pack(model, params, path, calib_tokens=128, calib_batch=4,
+               calib_seqlen=32, device=dev)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (cfg.n_layers, 0)
+    runtime = build_offload_runtime(model, params, calib_batch=(4, 32),
+                                    device=dev)
+    pack = NeuronPack(path)
+    for l, e in enumerate(runtime.engines):
+        np.testing.assert_array_equal(pack.placement(l).placement,
+                                      e.placement.placement)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (5, 9, 7)]
+
+    def serve(**kw):
+        server = InferenceServer(model, params, max_slots=2, max_len=32,
+                                 mode="offload", device=dev, **kw)
+        handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+                   for i, p in enumerate(prompts)]
+        server.drain()
+        server.close()
+        return handles
+
+    memory = serve(offload=runtime)
+    ops.reset_counts()
+    packed = serve(pack_path=path, verify_checksums=True)
+    assert ops.counts["sparse_ffn_segments_fused"].plain_calls == 0
+    for h, m in zip(packed, memory):
+        assert h.result.tokens == m.result.tokens
+        assert h.result.io_seconds == m.result.io_seconds > 0

@@ -49,7 +49,7 @@ def _clustered_masks(rng, T, n, groups=12):
 def test_search_placement_bit_identical(mode):
     rng = np.random.default_rng(1)
     masks = _clustered_masks(rng, 200, 384)
-    dt = tcoact.stats_from_masks(masks).distance_matrix()
+    dt = tcoact.stats_from_masks(masks, device="cpu").distance_matrix()
     dj = jcoact.stats_from_masks(masks).distance_matrix()
     np.testing.assert_array_equal(dt, dj)
     pt = tplacement.search_placement(dt, mode=mode)

@@ -100,6 +100,45 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                     device="cpu")
 
 
+def test_offline_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    """The offline stage and pack serving: stats, `build_pack`,
+    `from_pack`, `InferenceServer(pack_path=)` and both command lines run
+    on CUDA unless given the CPU, and raise without a card."""
+    from repro_torch.core.coactivation import (CoActivationStats,
+                                               stats_from_mask_shards)
+    from repro_torch.launch import pack, serve
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import OffloadedFFNRuntime
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.store import build_pack
+    cfg = _tiny_cfg()
+    for make in (lambda: CoActivationStats(8),
+                 lambda: stats_from_mask_shards([np.zeros((2, 8), bool)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    model = build_model(cfg, device="cpu")
+    params = model.init_params()
+    path = tmp_path / "t.npack"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_pack(model, params, path, calib_tokens=8, calib_batch=1,
+                   calib_seqlen=8)
+    build_pack(model, params, path, calib_tokens=8, calib_batch=1,
+               calib_seqlen=8, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OffloadedFFNRuntime.from_pack(cfg, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceServer(model, params, mode="offload", pack_path=str(path))
+    InferenceServer(model, params, mode="offload", pack_path=str(path),
+                    device="cpu").close()
+    geom = ["--arch", "qwen2-7b", "--n-layers", "1", "--d-model", "32",
+            "--d-ff", "128"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pack.main(geom + ["--out", str(tmp_path / "q.npack")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(geom + ["--requests", "1"])
+
+
 def test_kernel_wrapper_never_falls_back():
     """The dispatcher routes only CPU tensors to the plain version; the CUDA
     wrapper rejects a CPU tensor instead of computing it."""
@@ -125,6 +164,13 @@ def test_kernel_wrapper_never_falls_back():
     ops.paged_decode_attention(q, arena, arena, table, cur)
     paged = ops.counts["paged_decode"]
     assert (paged.launches, paged.plain_calls) == (0, 1)
+    from repro_torch.kernels.coact import coact_accumulate_cuda
+    masks = torch.ones((3, 5), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA device"):
+        coact_accumulate_cuda(masks)
+    ops.coact_accumulate(masks)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (0, 1)
 
 
 def test_unported_options_raise():
@@ -134,10 +180,12 @@ def test_unported_options_raise():
     cfg = _tiny_cfg()
     model = build_model(cfg, device="cpu")
     params = model.init_params()
-    for kw in (dict(prefetch=True), dict(oracle=False),
-               dict(pack_path="x.pack"), dict(swa=True)):
+    for kw in (dict(prefetch=True), dict(oracle=False), dict(swa=True)):
         with pytest.raises(NotImplementedError):
             InferenceServer(model, params, device="cpu", **kw)
+    # pack_path is ported: it needs offload mode (and no offload= runtime)
+    with pytest.raises(ValueError, match="requires mode='offload'"):
+        InferenceServer(model, params, device="cpu", pack_path="x.pack")
     with pytest.raises(NotImplementedError):
         build_offload_runtime(model, params, train_lookahead=True,
                               device="cpu")
