@@ -73,6 +73,40 @@ Phases, in order (any failure raises and the script exits non-zero):
      the card and on the CPU: equal tokens, or a first difference at a
      top-2 logit margin below 1e-3 (judged on the CPU with the pack's
      dequantised weights).
+ 11. swa kernel: the sliding-window decode kernel against its plain version
+     (rtol = atol = 1e-5 in float32, 2e-2 in bfloat16) on rings of the
+     model's window (8192 slots) read in place: opt-350m heads (16 x 64)
+     with rows at their own positions (two wrapped rings, a short one, an
+     empty one, which must give 0), mistral-7b-relu's (32 query / 8 KV
+     heads x 128) in float32 and bfloat16, and the reference's scalar-cur
+     form; max error, event ms, profiler device ms cold / warm, plain ms,
+     the byte bound (the valid slots' K/V rows and every slot's position),
+     and SDPA with a boolean mask on the same rings as a yardstick.
+ 12. swa: the slice's opt-350m served with `swa=True` (rings of 8192 slots),
+     resident then offload: five requests on four slots, prompts of 8300
+     tokens (wrapped in prefill), 8180 (wraps in decode) and three of 32
+     (the last admitted into a reused slot), 16 new tokens each. Checks:
+     every request finishes by length; swa-kernel launches = decode steps x
+     24 and no plain call, per mode; at uid 0's last token the kernel
+     equals its plain version on layer 0's live rings, whose long rows
+     show the wrap; the reused slot holds only its new request's
+     positions; the short requests' tokens equal a contiguous-cache run's
+     and offload tokens equal resident tokens (margin rule as in 4).
+ 13. segment kernel: the unfused segment-FFN kernel against its plain
+     version (1e-4) with w_up / w_gate as transposed views of [D, N]
+     weights: the serve_sparse shape (B=4, D=1024, N=4096, S=4), mistral-
+     7b-relu's (D=4096, N=14336, S=16), gated silu, -1 pads with a
+     repeated id, and bfloat16 weights; the same columns as 11, the bound
+     being the gathered rows' bytes, and `index_select` + `torch.mm` as a
+     yardstick (no single PyTorch call computes it).
+ 14. sparse: the slice's model and requests with `serve_sparse=True` (the
+     config's 128-neuron segments and sparse_frac 0.15: 4 of 32 segments,
+     seeded predictors), resident. Checks: segment-kernel launches = decode
+     steps x 24, no plain call; tokens equal the same decode on the CPU
+     (plain versions, same weights) unless the CPU run's top-2 logit margin
+     at the first difference is below 1e-3 or its k-th and (k+1)-th
+     segment scores lie within 1e-5 relative; with sparse_frac 1.0 the
+     tokens equal the dense resident run's (margin rule as in 4).
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -106,6 +140,11 @@ INT8_OPS = 1979e12             # H100 SXM data sheet, int8 tensor cores, dense
 COACT_SOURCE = "src/repro_torch/kernels/csrc/coact.cu"
 COACT_REPLACES = "src/repro/kernels/coact.py:39"
 COACT_KERNELS = ("coact_transpose_kernel", "coact_mma_kernel")
+SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_decode.cu"
+SWA_REPLACES = "src/repro/kernels/swa_decode.py:103"
+SWA_KERNELS = ("swa_split_kernel", "swa_combine_kernel")
+SEG_SOURCE = "src/repro_torch/kernels/csrc/sparse_ffn_segments.cu"
+SEG_REPLACES = "src/repro/kernels/sparse_ffn.py:203"
 ITERS = 30                     # timed launches per kernel measurement
 # the card run's traffic: 4 requests, 32-token prompts, 16 new tokens
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
@@ -400,15 +439,16 @@ def slice_phase(dev, seed: int, n_requests: int, prompt_len: int,
                                  for r in (off_row, res_row)}}
 
 
-def decode_margin(model, params, prompt, tokens, t: int, max_len: int) -> float:
+def decode_margin(model, params, prompt, tokens, t: int, max_len: int,
+                  swa: bool = False) -> float:
     """Top-2 logit margin of the token a contiguous B=1 resident decode
     picks at step t, after the prompt and `tokens[:t]`; the model's
     `kv_quant` decides the KV type, so an int8 run is judged on int8
-    logits."""
+    logits, and `swa` a sliding-window run on its rings."""
     import torch
     dev = model.device
     with torch.inference_mode():
-        cache = model.init_cache(1, max_len)
+        cache = model.init_cache(1, max_len, swa=swa)
         logits, cache = model.prefill(params, {"tokens": torch.as_tensor(
             prompt[None], dtype=torch.int64, device=dev)}, cache)
         for i in range(t):
@@ -420,7 +460,7 @@ def decode_margin(model, params, prompt, tokens, t: int, max_len: int) -> float:
 
 
 def check_tokens(model, params, reqs, handles, ref_handles, max_len,
-                 what: str, ref: str):
+                 what: str, ref: str, swa: bool = False):
     """Assert `handles` emitted `ref_handles`' tokens, accepting a
     difference only where the reference's choice had a top-2 logit margin
     below 1e-4 (a near tie that another summation order may flip). Returns
@@ -431,7 +471,7 @@ def check_tokens(model, params, reqs, handles, ref_handles, max_len,
         if t is None:
             continue
         margin = decode_margin(model, params, req.prompt, hr.result.tokens,
-                               t, max_len)
+                               t, max_len, swa=swa)
         mismatches.append({"uid": req.uid, "step": t, "margin": margin,
                            "run": what, "reference": ref})
         emit({"token_mismatch": mismatches[-1]})
@@ -447,14 +487,16 @@ HOST_SPANS = ("decode_step", "probe", "read", "admit")
 
 
 def breakdown_phase(dev, model, params, runtime, reqs, max_len,
-                    main_ms_per_step) -> None:
-    """Where a decode step's time goes, per mode, after the main path ran:
-    the same requests (new uids) are admitted with one `step()`, then the
-    remaining decode steps run under `torch.profiler` (CUDA activity: the
-    card's kernel and copy times) and the port's own tracer (host spans of
-    the offload engine). The profiler slows the host, so the idle share it
-    gives against its own wall is an upper estimate; the share against the
-    main path's unprofiled step time is printed beside it."""
+                    main_ms_per_step, path: str = "slice",
+                    kernels=FFN_KERNELS, **server_kw) -> None:
+    """Where a decode step's time goes, per mode of `main_ms_per_step`,
+    after that path ran: the same requests (new uids) are admitted with one
+    `step()`, then the remaining decode steps run under `torch.profiler`
+    (CUDA activity: the card's kernel and copy times) and the port's own
+    tracer (host spans of the offload engine). The profiler slows the host,
+    so the idle share it gives against its own wall is an upper estimate;
+    the share against the path's unprofiled step time is printed beside
+    it, and the device time of the kernels named in `kernels`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -463,11 +505,11 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
 
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    for mode in ("offload", "resident"):
+    for mode in main_ms_per_step:
         server = InferenceServer(model, params, max_slots=len(reqs),
                                  max_len=max_len, mode=mode,
                                  offload=runtime if mode == "offload" else None,
-                                 device=dev)
+                                 device=dev, **server_kw)
         for r in reqs:
             server.submit(dataclasses.replace(r, uid=r.uid + 1000))
         server.step()                 # admissions + the first decode step
@@ -494,7 +536,7 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
         device_ms = sum(device.values())
         wall_ms = 1e3 * wall / steps
         emit({"breakdown": {
-            "mode": mode, "decode_steps": steps,
+            "path": path, "mode": mode, "decode_steps": steps,
             "wall_ms_per_step": wall_ms,
             "host_span_ms_per_step": host,
             "device_ms_per_step": device_ms if device else None,
@@ -502,9 +544,9 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
             "main_path_ms_per_step": main_ms_per_step[mode],
             "device_idle_share_vs_main_path": (
                 1 - device_ms / main_ms_per_step[mode] if device else None),
-            "ffn_kernel_device_ms_per_step": sum(
+            "kernel_device_ms_per_step": sum(
                 t for k, t in device.items()
-                if any(n in k for n in FFN_KERNELS)) if device else None,
+                if any(n in k for n in kernels)) if device else None,
             "top_device_ms_per_step": dict(sorted(
                 device.items(), key=lambda kv: -kv[1])[:8])}})
 
@@ -848,6 +890,515 @@ def coact_kernel_phase(dev, seed: int, reduced: bool) -> dict:
     return {"cases": cases}
 
 
+# -- swa kernel phase ----------------------------------------------------------------
+
+SWA_TOL = {"float32": 1e-5,        # online softmax, slots in another order
+           "bfloat16": 2e-2}       # one bf16 rounding of the output apart
+SWA_CASES = [
+    # name, KV, G, hd, dtype, scalar cur, per-row current positions for a
+    # ring of W slots (-1: an empty row)
+    ("opt350m_serve_f32", 16, 1, 64, "float32", False,
+     lambda W: [W + 126, W + 3, 46, -1]),
+    ("mistral7b_f32", 8, 4, 128, "float32", False,
+     lambda W: [W + 126, W + 3, 46, -1]),
+    ("mistral7b_bf16", 8, 4, 128, "bfloat16", False,
+     lambda W: [W + 126, W + 3, 46, -1]),
+    # the reference's form: one scalar cur, every ring full and wrapped
+    ("opt350m_scalar_cur_f32", 16, 1, 64, "float32", True,
+     lambda W: [W + 1808] * 4),
+]
+REHEARSAL_SWA_W = 128
+
+
+def swa_inputs(gen, KV, G, hd, dtype, scalar, curs, W):
+    """q and rings on the card; row b's ring holds its last W positions up
+    to curs[b] (slot = pos % W), the rest of the ring empty (-1); random
+    K/V everywhere, so the kernel must ignore what is not valid. `scalar`
+    passes one 0-d cur for the batch."""
+    import torch
+    dev = gen.device
+    B = len(curs)
+    pos = torch.full((B, W), -1, dtype=torch.int32)
+    for b, c in enumerate(curs):
+        p = torch.arange(max(0, c - W + 1), c + 1, dtype=torch.int32)
+        pos[b, (p % W).long()] = p
+    dt = getattr(torch, dtype)
+    k, v = (torch.randn((B, W, KV, hd), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    q = torch.randn((B, KV * G, hd), generator=gen, device=dev).to(dt)
+    cur = (torch.tensor(curs[0], dtype=torch.int32, device=dev) if scalar
+           else torch.tensor([max(c, 0) for c in curs], dtype=torch.int32,
+                             device=dev))
+    return q, k, v, pos.to(dev), cur
+
+
+def swa_bound(q, k, pos, cur, window):
+    """(bound ms, what bounds it, bytes): the K/V rows of the valid slots,
+    every slot's position, cur, q and the output over the HBM rate; vs 4
+    flops per (valid slot, query head, element) over the fp32 rate. Also
+    the full rings' bytes."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    c = cur.long().reshape(-1, 1).expand(B, 1)
+    p = pos.long()
+    n_valid = int(((p >= 0) & (p > c - window) & (p <= c)).sum())
+    row = KV * hd * k.element_size()
+    nbytes = (2 * n_valid * row + pos.numel() * 4 + cur.numel() * 4
+              + 2 * q.numel() * q.element_size())
+    flops = 4 * n_valid * H * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            2 * k.numel() * k.element_size() + pos.numel() * 4)
+
+
+def swa_sdpa_yardstick(q, k, v, pos, cur, window, flush):
+    """ms of one `scaled_dot_product_attention` call on the same rings with
+    a boolean mask of the valid slots ([B, KV, W, hd] copies made outside
+    the timing). A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    B = q.shape[0]
+    kt = k.permute(0, 2, 1, 3).contiguous()
+    vt = v.permute(0, 2, 1, 3).contiguous()
+    c = cur.long().reshape(-1, 1).expand(B, 1)
+    p = pos.long()
+    mask = ((p >= 0) & (p > c - window) & (p <= c))[:, None, None]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), flush)
+
+
+def swa_kernel_phase(dev, seed: int, W: int) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa_decode import swa_decode_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    cases = []
+    for name, KV, G, hd, dtype, scalar, cur_fn in SWA_CASES:
+        curs = cur_fn(W)
+        q, k, v, pos, cur = swa_inputs(gen, KV, G, hd, dtype, scalar, curs,
+                                       W)
+        args = (q, k, v, pos, cur)
+        out = ops.swa_decode_attention(*args, window=W)
+        ref = swa_decode_attention_plain(*args, window=W)
+        sync(dev)
+        assert out.shape == ref.shape == q.shape and out.dtype == q.dtype
+        assert bool(torch.isfinite(out).all()), f"{name}: non-finite"
+        err = float((out.float() - ref.float()).abs().max())
+        tol = SWA_TOL[dtype]
+        ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
+        same = bool(torch.equal(out, ops.swa_decode_attention(*args,
+                                                              window=W)))
+        empty = [b for b, c in enumerate(curs) if c < 0]
+        zero = all(float(out[b].float().abs().max()) == 0.0 for b in empty)
+
+        def kernel():
+            return ops.swa_decode_attention(*args, window=W)
+
+        bound_ms, bound_by, nbytes, ring_bytes = swa_bound(q, k, pos, cur, W)
+        case = dict(
+            case=name, B=q.shape[0], H=q.shape[1], KV=KV, hd=hd, W=W,
+            dtype=dtype, cur=cur.tolist(), empty_rows=empty,
+            max_abs_err=err, tol=tol, allclose=ok, deterministic=same,
+            empty_rows_zero=zero, ms=time_ms(kernel, flush),
+            device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
+                                            names=SWA_KERNELS),
+            device_warm_ms=kernel_device_ms(kernel, flush, cold=False,
+                                            names=SWA_KERNELS),
+            plain_ms=time_ms(lambda: swa_decode_attention_plain(
+                *args, window=W), flush),
+            bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+            full_ring_bytes=ring_bytes,
+            full_ring_bound_ms=ring_bytes / HBM_BYTES_PER_S * 1e3,
+            library_sdpa_mask_ms=(swa_sdpa_yardstick(*args, W, flush)
+                                  if dev.type == "cuda" else None))
+        emit({"swa_kernel_case": case})
+        assert ok, f"{name}: kernel disagrees with the plain version ({err})"
+        assert same, f"{name}: two launches gave different bits"
+        assert zero, f"{name}: an empty row is not 0"
+        cases.append(case)
+    del flush
+    return {"cases": cases}
+
+
+# -- swa serving phase ------------------------------------------------------------
+
+SWA_NEW_TOKENS = 16
+SWA_MARGIN = 1e-4
+
+
+def swa_requests(cfg, seed: int):
+    """Five requests on four slots: a prompt W + 108 tokens long (its ring
+    wraps in prefill), one W - 12 long (wraps during decode), three of 32
+    (the last admitted into the slot the first frees)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed + 6)
+    W = cfg.sliding_window
+    lens = [W + 108, W - 12, 32, 32, 32]
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=SWA_NEW_TOKENS)
+            for i, n in enumerate(lens)]
+
+
+def swa_phase(dev, seed: int, model, params, runtime) -> dict:
+    """`InferenceServer(swa=True)` resident, then offload: counts set to 0
+    just before each run, read just after. At uid 0's last token (every
+    slot live, both long rings wrapped) layer 0's ring is copied, and after
+    the run the kernel is held against its plain version on that copy."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa_decode import swa_decode_attention_plain
+    from repro_torch.serving.server import InferenceServer
+
+    cfg = model.cfg
+    W = cfg.sliding_window
+    reqs = swa_requests(cfg, seed)
+    max_len = max(len(r.prompt) for r in reqs) + SWA_NEW_TOKENS
+    n_layers = cfg.n_layers
+    rows, runs, launches = [], {}, {}
+    for mode in ("resident", "offload"):
+        server = InferenceServer(
+            model, params, max_slots=4, max_len=max_len, swa=True, mode=mode,
+            offload=runtime if mode == "offload" else None, device=dev)
+        snap = {}
+
+        def on_token(uid, tok, server=server, snap=snap):
+            if len(server._handles[uid].tokens) == SWA_NEW_TOKENS:
+                ring = server._cache[0]["sub_0"]
+                snap.update(k=ring.k.clone(), v=ring.v.clone(),
+                            pos=ring.pos.clone())
+
+        handles = [server.submit(r, on_token=on_token if r.uid == 0 else None)
+                   for r in reqs]
+        ops.reset_counts()
+        server.drain()
+        sync(dev)
+        sc = ops.counts["swa_decode"]
+        st = server.stats
+        row = {"mode": mode, "requests": len(reqs),
+               "prompt_lens": [len(r.prompt) for r in reqs], "window": W,
+               "decode_steps": st.decode_steps,
+               "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+               "prefill_s_total": st.prefill_seconds,
+               "swa_launches": sc.launches, "swa_plain_calls": sc.plain_calls,
+               "ffn_launches": ops.counts["sparse_ffn_segments_fused"].launches}
+        for h in handles:
+            assert h.result.finish_reason == "length", (h.uid, h.result)
+            assert len(h.result.tokens) == SWA_NEW_TOKENS
+        taken, other = ((sc.launches, sc.plain_calls) if dev.type == "cuda"
+                        else (sc.plain_calls, sc.launches))
+        assert other == 0, row
+        assert taken == st.decode_steps * n_layers > 0, row
+        # the last step: the live rings, the kernel vs its plain version
+        pos = snap["pos"]
+        cur = pos.max(dim=1).values
+        q = torch.randn((4, cfg.n_heads, cfg.head_dim),
+                        generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+        args = (q, snap["k"], snap["v"], pos, cur)
+        out = ops.swa_decode_attention(*args, window=W)
+        ref = swa_decode_attention_plain(*args, window=W)
+        row.update(last_step_cur=cur.tolist(),
+                   last_step_max_abs_err=float((out - ref).abs().max()),
+                   reused_slot_valid_positions=None)
+        assert torch.allclose(out, ref, rtol=SWA_TOL["float32"],
+                              atol=SWA_TOL["float32"]), row
+        assert int(cur[0]) >= W and int(cur[1]) >= W, row    # both wrapped
+        # uid 4 took over uid 0's slot: its ring holds its own positions only
+        h4 = handles[4]
+        live = server._cache[0]["sub_0"].pos[0]
+        valid = sorted(int(p) for p in live[live >= 0].tolist())
+        row["reused_slot_valid_positions"] = [valid[0], valid[-1], len(valid)]
+        n4 = len(reqs[4].prompt) + SWA_NEW_TOKENS - 1
+        assert valid == list(range(n4)), row["reused_slot_valid_positions"]
+        del snap, args, out, ref
+        emit({"swa": row})
+        rows.append(row)
+        runs[mode] = handles
+        launches[mode] = taken
+    # the short requests against a contiguous-cache resident run
+    short = [r for r in reqs if len(r.prompt) < W - SWA_NEW_TOKENS]
+    cont = InferenceServer(model, params, max_slots=4,
+                           max_len=len(short[0].prompt) + SWA_NEW_TOKENS,
+                           device=dev)
+    cont_handles = [cont.submit(r) for r in short]
+    cont.drain()
+    by_uid = {h.uid: h for h in runs["resident"]}
+    mismatches = check_tokens(model, params, short,
+                              [by_uid[r.uid] for r in short], cont_handles,
+                              len(short[0].prompt) + SWA_NEW_TOKENS,
+                              "swa resident", "contiguous resident")
+    mismatches += check_tokens(model, params, reqs, runs["offload"],
+                               runs["resident"], max_len, "swa offload",
+                               "swa resident", swa=True)
+    emit({"swa_checks": {"mismatches": mismatches}})
+    breakdown_phase(dev, model, params, runtime, reqs, max_len,
+                    {r["mode"]: r["decode_ms_per_step"] for r in rows},
+                    path="swa", kernels=SWA_KERNELS, swa=True)
+    return {"launches": launches, "rows": rows}
+
+
+# -- segment kernel phase -----------------------------------------------------------
+
+SEG_TOL = 1e-4     # f32 sums in another order (bf16 weights upcast exactly)
+SEG_KERNELS = ("seg_up_partial_kernel", "seg_act_kernel", "seg_down_kernel",
+               "seg_sum_kernel")
+SEG_CASES = [
+    # name, B, D, N, S, dtype, activation, gated, ids (None: random, no pad)
+    ("serve_sparse_opt350m_f32", 4, 1024, 4096, 4, "float32", "relu", False,
+     None),
+    ("mistral7b_f32", 4, 4096, 14336, 16, "float32", "relu", False, None),
+    ("gated_silu_f32", 4, 1024, 4096, 4, "float32", "silu", True, None),
+    ("pad_and_repeat_f32", 4, 1024, 4096, 4, "float32", "relu", False,
+     [7, -1, 7, 30]),
+    ("serve_sparse_opt350m_bf16", 4, 1024, 4096, 4, "bfloat16", "relu", False,
+     None),
+]
+REHEARSAL_SEG = dict(D=256, N=512)
+
+
+def segment_inputs(gen, B, D, N, S, dtype, gated, ids, seg=128):
+    """x and weights on the card: w_up / w_gate as transposed views of
+    [D, N] storage (the model's layout), w_down [N, D] rows."""
+    import torch
+    dev = gen.device
+    dt = getattr(torch, dtype)
+    x = torch.randn((B, D), generator=gen, device=dev)
+    w_up = (torch.randn((D, N), generator=gen, device=dev) * D ** -0.5
+            ).to(dt).T
+    w_gate = ((torch.randn((D, N), generator=gen, device=dev) * D ** -0.5
+               ).to(dt).T if gated else None)
+    w_down = (torch.randn((N, D), generator=gen, device=dev) * N ** -0.5
+              ).to(dt)
+    if ids is None:
+        ids = torch.randperm(N // seg, generator=gen, device=dev)[:S]
+    ids = torch.as_tensor(ids, device=dev).to(torch.int32)
+    return x, w_up, w_down, ids, w_gate
+
+
+def segment_bound(x, w_up, ids, gated, seg=128):
+    """(bound ms, what bounds it): the gathered rows' bytes (each live id's
+    segment once per matrix; a repeat is read again by the function's
+    definition, but the same bytes) + x, ids and the output over the HBM
+    rate, vs 2 flops per (row, weight element) over the fp32 rate."""
+    n_mats = 3 if gated else 2
+    B, D = x.shape
+    live = sorted({int(i) for i in ids.tolist() if i >= 0})
+    nbytes = (len(live) * seg * D * n_mats * w_up.element_size()
+              + 2 * x.numel() * 4 + ids.numel() * 4)
+    n_used = sum(1 for i in ids.tolist() if i >= 0)
+    flops = 2 * B * n_used * seg * D * n_mats
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def segment_yardstick(x, w_up, w_down, ids, w_gate, activation, seg, flush):
+    """ms of `index_select` of the segments' rows + two `torch.mm` (and
+    the gate's) for the same function; no single PyTorch call computes it.
+    A yardstick only: the port never calls it."""
+    import torch
+    from repro_torch.models.layers import apply_activation
+    live = ids[ids >= 0].long()
+    rows = (live[:, None] * seg + torch.arange(seg, device=ids.device)
+            ).reshape(-1)
+
+    def f():
+        xf = x.to(w_up.dtype)
+        a = apply_activation(torch.mm(xf, torch.index_select(w_up, 0, rows).T),
+                             activation)
+        if w_gate is not None:
+            a = a * torch.mm(xf, torch.index_select(w_gate, 0, rows).T)
+        return torch.mm(a, torch.index_select(w_down, 0, rows))
+
+    return time_ms(f, flush)
+
+
+def segment_kernel_phase(dev, seed: int, reduced: bool) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_ffn import sparse_ffn_segments_plain
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    cases = []
+    for name, B, D, N, S, dtype, act, gated, ids in SEG_CASES:
+        if reduced:
+            D, N = REHEARSAL_SEG["D"], REHEARSAL_SEG["N"]
+            S = min(S, N // 128)
+            ids = None if ids is None else [i % (N // 128) if i >= 0 else i
+                                            for i in ids]
+        x, w_up, w_down, seg_ids, w_gate = segment_inputs(
+            gen, B, D, N, S, dtype, gated, ids)
+        kw = dict(seg_size=128, activation=act)
+        args = (x, w_up, w_down, seg_ids, w_gate)
+        y = ops.sparse_ffn_segments(*args, **kw)
+        ref = sparse_ffn_segments_plain(*args, **kw)
+        sync(dev)
+        assert y.shape == ref.shape == x.shape, name
+        assert bool(torch.isfinite(y).all()), f"{name}: non-finite"
+        err = float((y - ref).abs().max())
+        ok = bool(torch.allclose(y, ref, rtol=SEG_TOL, atol=SEG_TOL))
+        same = bool(torch.equal(y, ops.sparse_ffn_segments(*args, **kw)))
+
+        def kernel():
+            return ops.sparse_ffn_segments(*args, **kw)
+
+        bound_ms, bound_by, nbytes = segment_bound(x, w_up, seg_ids, gated)
+        case = dict(
+            case=name, B=B, D=D, N=N, S=S, dtype=dtype, activation=act,
+            gated=gated, ids=seg_ids.tolist(), w_up_strides=list(
+                w_up.stride()), max_abs_err=err, tol=SEG_TOL, allclose=ok,
+            deterministic=same, ms=time_ms(kernel, flush),
+            device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
+                                            names=SEG_KERNELS),
+            device_warm_ms=kernel_device_ms(kernel, flush, cold=False,
+                                            names=SEG_KERNELS),
+            plain_ms=time_ms(lambda: sparse_ffn_segments_plain(*args, **kw),
+                             flush),
+            bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+            yardstick_index_select_mm_ms=segment_yardstick(
+                *args, act, 128, flush))
+        emit({"segment_kernel_case": case})
+        assert ok, f"{name}: kernel disagrees with the plain version ({err})"
+        assert same, f"{name}: two launches gave different bits"
+        cases.append(case)
+    del flush
+    return {"cases": cases}
+
+
+# -- sparse serving phase -----------------------------------------------------------
+
+SPARSE_MARGIN = 1e-3
+SPARSE_GAP = 1e-5
+
+
+def with_predictors(params, cfg, seed: int, device):
+    """`params` plus a seeded `ffn_pred` in every sublayer (all dense; drawn on
+    the CPU, so every device gets the same numbers)."""
+    import torch
+    from repro_torch.models.layers import init_ffn_predictor
+    gen = torch.Generator().manual_seed(seed)
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = [{j: dict(sub, ffn_pred={
+        k: v.to(device) for k, v in init_ffn_predictor(gen, cfg).items()})
+        for j, sub in group.items()} for group in params["stack"]]
+    return out
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def sparse_phase(dev, seed: int, model, params, reqs, max_len) -> dict:
+    """`cfg.serve_sparse` resident decode of the slice's model and requests
+    (counts set to 0 just before the card run, read just after), the same
+    decode on the CPU (plain versions, recording each step's top-2 logit
+    margins and each layer's gap between the k-th and (k+1)-th segment
+    scores), then `sparse_frac=1.0` against the dense resident run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, layers
+    from repro_torch.serving.server import InferenceServer
+
+    cfg = dataclasses.replace(model.cfg, serve_sparse=True)
+    n_seg = cfg.d_ff // cfg.sparse_seg
+    k_seg = max(1, int(n_seg * cfg.sparse_frac))
+    smodel = build_model(cfg, device=dev)
+    sparams = with_predictors(params, cfg, seed + 8, dev)
+
+    def serve(m, p, device, **kw):
+        server = InferenceServer(m, p, max_slots=len(reqs), max_len=max_len,
+                                 device=device, **kw)
+        handles = [server.submit(r) for r in reqs]
+        ops.reset_counts()
+        server.drain()
+        sync(torch.device(device) if isinstance(device, str) else device)
+        return handles, server.stats
+
+    handles, st = serve(smodel, sparams, dev)
+    sc = ops.counts["sparse_ffn_segments"]
+    row = {"k_seg": k_seg, "n_seg": n_seg, "decode_steps": st.decode_steps,
+           "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+           "segment_launches": sc.launches,
+           "segment_plain_calls": sc.plain_calls}
+    for h in handles:
+        assert h.result.finish_reason == "length", (h.uid, h.result)
+    taken, other = ((sc.launches, sc.plain_calls) if dev.type == "cuda"
+                    else (sc.plain_calls, sc.launches))
+    assert other == 0, row
+    assert taken == st.decode_steps * cfg.n_layers > 0, row
+
+    # the same decode on the CPU, recording margins and segment-score gaps
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(sparams, "cpu")
+    margins, gaps = [], []
+    real_predict = layers.predict_segments
+
+    def recording_predict(pred, x, c):
+        B, T, d = x.shape
+        scores = torch.relu(x.reshape(B * T, d) @ pred["w1"]) @ pred["w2"]
+        top = torch.topk(scores.float().sum(0), min(k_seg + 1, n_seg)).values
+        if len(top) > k_seg:
+            gaps[-1] = min(gaps[-1], float((top[k_seg - 1] - top[k_seg]).abs()
+                                           / top[k_seg - 1].abs()))
+        return real_predict(pred, x, c)
+
+    def recording_decode(p, tok, pos, cache):
+        gaps.append(float("inf"))
+        logits, cache = cpu_model.decode_step(p, tok, pos, cache)
+        top2 = torch.topk(logits[:, 0].float(), 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        return logits, cache
+
+    layers.predict_segments = recording_predict
+    try:
+        cpu_handles, _ = serve(cpu_model, cpu_params, "cpu",
+                               decode_fn=recording_decode)
+    finally:
+        layers.predict_segments = real_predict
+    mismatches = []
+    for slot, (h, hc) in enumerate(zip(handles, cpu_handles)):
+        t = first_divergence(h.result.tokens, hc.result.tokens)
+        if t is None:
+            continue
+        if t == 0:      # the prefill's token: dense in both, margin rule
+            margin = decode_margin(cpu_model, cpu_params, reqs[slot].prompt,
+                                   hc.result.tokens, 0, max_len)
+            gap = None
+        else:           # token t comes out of decode step t (all admitted
+            margin = margins[t - 1][slot]   # in the first step, uid = slot)
+            gap = gaps[t - 1]
+        mismatches.append({"uid": h.uid, "step": t, "margin": margin,
+                           "segment_gap": gap})
+        emit({"token_mismatch": dict(mismatches[-1], run="sparse card",
+                                     reference="sparse cpu")})
+        assert margin < SPARSE_MARGIN or (gap is not None
+                                          and gap < SPARSE_GAP), mismatches
+    row["mismatches_vs_cpu"] = mismatches
+
+    # sparse_frac = 1.0 gathers every segment: the dense FFN
+    full = build_model(dataclasses.replace(cfg, sparse_frac=1.0), device=dev)
+    full_handles, _ = serve(full, sparams, dev)
+    row["full_fraction_segment_launches"] = ops.counts[
+        "sparse_ffn_segments"].launches
+    dense_handles, _ = serve(model, params, dev)
+    row["mismatches_full_vs_dense"] = check_tokens(
+        model, params, reqs, full_handles, dense_handles, max_len,
+        "serve_sparse frac 1.0", "dense resident")
+    emit({"sparse": row})
+    del cpu_params, cpu_model
+    breakdown_phase(dev, smodel, sparams, None, reqs, max_len,
+                    {"resident": row["decode_ms_per_step"]}, path="sparse",
+                    kernels=SEG_KERNELS)
+    return {"launches": taken, "row": row}
+
+
 # -- pack phase ----------------------------------------------------------------------
 
 # seeded recoverable faults per layer store, over its first reads
@@ -1144,12 +1695,21 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         pk = pack_phase(dev, args.seed, sl, tmp)
         cli_phase(dev, args.seed, tmp, reduced=args.cpu_rehearsal)
+    skern = swa_kernel_phase(dev, args.seed, W=(
+        REHEARSAL_SWA_W if args.cpu_rehearsal
+        else sl["model"].cfg.sliding_window))
+    sw = swa_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"])
+    gkern = segment_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+    sp = sparse_phase(dev, args.seed, sl["model"], sl["params"], sl["reqs"],
+                      sl["max_len"])
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
         return 3
     main_case = kern["cases"][0]
     paged_case = pkern["cases"][0]
     coact_case = ckern["cases"][0]
+    swa_case = skern["cases"][0]
+    seg_case = gkern["cases"][0]
     emit({"kernels": [{
         "name": "sparse_ffn_segments_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1185,7 +1745,34 @@ def main(argv=None) -> int:
         "bound_ms": coact_case["bound_ms"],
         "bound_by": coact_case["bound_by"],
         "library_ms": coact_case["library_mm_f32_ms"],
-        "library_int_mm_ms": coact_case["library_int_mm_ms"]}]})
+        "library_int_mm_ms": coact_case["library_int_mm_ms"]}, {
+        # the swa serving shape's float32 case (opt-350m heads, W = 8192,
+        # rows wrapped / short / empty); every case's line is above
+        "name": "swa_decode", "route": "cuda",
+        "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+        "launches": sw["launches"]["resident"],
+        "launches_by_run": sw["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in skern["cases"]),
+        "ms": swa_case["ms"],
+        "device_cold_ms": swa_case["device_cold_ms"],
+        "device_warm_ms": swa_case["device_warm_ms"],
+        "plain_ms": swa_case["plain_ms"],
+        "bound_ms": swa_case["bound_ms"],
+        "bound_by": swa_case["bound_by"],
+        "library_ms": swa_case["library_sdpa_mask_ms"]}, {
+        # the serve_sparse shape (B=4, D=1024, N=4096, S=4, w_up a view)
+        "name": "sparse_ffn_segments", "route": "cuda",
+        "source": SEG_SOURCE, "replaces": SEG_REPLACES,
+        "launches": sp["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in gkern["cases"]),
+        "ms": seg_case["ms"],
+        "device_cold_ms": seg_case["device_cold_ms"],
+        "device_warm_ms": seg_case["device_warm_ms"],
+        "plain_ms": seg_case["plain_ms"],
+        "bound_ms": seg_case["bound_ms"],
+        "bound_by": seg_case["bound_by"], "library_ms": None,
+        "yardstick_index_select_mm_ms":
+            seg_case["yardstick_index_select_mm_ms"]}]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -78,13 +78,14 @@ def relu_activation_mask(pre_act: torch.Tensor) -> torch.Tensor:
 
 
 def topk_activation_mask(pre_act: torch.Tensor, k: int) -> torch.Tensor:
-    """Magnitude top-k per token — used for non-ReLU (SiLU) models; ties at
-    the k-th magnitude are all kept. Declared divergence: the reference's
-    expression negates its threshold (`-top_k(|x|, k)[0][..., -1:]`) and so
-    keeps every neuron; this keeps the k of largest magnitude, as both
-    docstrings say."""
+    """Magnitude top-k per token — used for non-ReLU (SiLU) models.
+
+    Kept for parity with the reference (src/repro/core/trace.py:80-83): its
+    threshold is the NEGATED k-th largest magnitude, so every neuron passes
+    and a top-k trace is all ones, in both packages."""
     mag = pre_act.abs()
-    thresh = torch.topk(mag, k, dim=-1).values[..., -1:]
+    # the reference's -top_k(-(-|x|), k)[0][..., -1:] (core/trace.py:82)
+    thresh = -torch.topk(mag, k, dim=-1).values[..., -1:]
     return mag >= thresh
 
 

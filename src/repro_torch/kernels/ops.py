@@ -10,20 +10,23 @@ Each kernel keeps its own pair; `reset_counts()` zeroes them all.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.kernels import coact, paged_decode, sparse_ffn
+from repro_torch.kernels import coact, paged_decode, sparse_ffn, swa_decode
 from repro_torch.kernels.build import Counts
 
 __all__ = ["counts", "reset_counts", "sparse_ffn_segments_fused",
-           "paged_decode_attention", "coact_accumulate"]
+           "paged_decode_attention", "coact_accumulate",
+           "swa_decode_attention", "sparse_ffn_segments"]
 
 counts: Dict[str, Counts] = {
     "sparse_ffn_segments_fused": sparse_ffn.counts,
     "paged_decode": paged_decode.counts,
     "coact_accumulate": coact.counts,
+    "swa_decode": swa_decode.counts,
+    "sparse_ffn_segments": sparse_ffn.segments_counts,
 }
 
 
@@ -94,3 +97,51 @@ def coact_accumulate(masks: torch.Tensor) -> torch.Tensor:   # [T, N]
     if masks.device.type == "cuda":
         return coact.coact_accumulate_cuda(masks)
     raise ValueError(f"coact_accumulate: unsupported device {masks.device}")
+
+
+def swa_decode_attention(
+    q: torch.Tensor,              # [B, H, hd] query of ONE new token
+    k_cache: torch.Tensor,        # [B, W, KV, hd] ring
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,            # [B, W] int32 slot positions (-1 empty)
+    cur_pos: Union[int, torch.Tensor],   # scalar, or [B] per row
+    *,
+    window: int,
+) -> torch.Tensor:
+    """Sliding-window decode attention over a ring; [B, H, hd] in q's
+    dtype. Slot w of row b takes part iff pos >= 0 and
+    cur - window < pos <= cur; a row with none gives 0. A scalar `cur_pos`
+    is the reference op's signature; a [B] vector (one position per row, for
+    the continuous-batching server) is the port's extension of it."""
+    if q.device.type == "cpu":
+        swa_decode.counts.plain_calls += 1
+        return swa_decode.swa_decode_attention_plain(
+            q, k_cache, v_cache, pos, cur_pos, window=window)
+    if q.device.type == "cuda":
+        return swa_decode.swa_decode_attention_cuda(
+            q, k_cache, v_cache, pos, cur_pos, window=window)
+    raise ValueError(f"swa_decode_attention: unsupported device {q.device}")
+
+
+def sparse_ffn_segments(
+    x: torch.Tensor,              # [B, D]
+    w_up: torch.Tensor,           # [N, D] float32 / bfloat16, any strides
+    w_down: torch.Tensor,         # [N, D]
+    seg_ids: torch.Tensor,        # [S] int32 segment block-indices (pad -1)
+    w_gate: Optional[torch.Tensor] = None,
+    *,
+    seg_size: int = 128,
+    activation: str = "relu",
+) -> torch.Tensor:
+    """Segment-gather FFN over float weights; f32 [B, D]. Entries of -1 in
+    `seg_ids` are padding (contribute 0); a repeated id counts twice."""
+    if x.device.type == "cpu":
+        sparse_ffn.segments_counts.plain_calls += 1
+        return sparse_ffn.sparse_ffn_segments_plain(
+            x, w_up, w_down, seg_ids, w_gate, seg_size=seg_size,
+            activation=activation)
+    if x.device.type == "cuda":
+        return sparse_ffn.sparse_ffn_segments_cuda(
+            x, w_up, w_down, seg_ids, w_gate, seg_size=seg_size,
+            activation=activation)
+    raise ValueError(f"sparse_ffn_segments: unsupported device {x.device}")

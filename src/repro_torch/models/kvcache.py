@@ -1,5 +1,5 @@
-"""KV caches (contiguous float and int8, paged float and int8) and cached
-attention.
+"""KV caches (contiguous float and int8, sliding-window rings, paged float
+and int8) and cached attention.
 
 Unlike the reference's immutable arrays, the port preallocates each cache
 once and WRITES IN PLACE: every `*_write*` function copies the new rows
@@ -12,7 +12,9 @@ scale, bit for bit as the reference does (`torch.round` and `jnp.round`
 both round half to even). The paged arenas have no batch axis: requests own
 disjoint pages through per-request page tables (`serving/paging.py`), and
 the last physical page is the null page that inactive slots point at. The
-sliding-window cache is not ported yet.
+sliding-window ring keeps the last W positions of each row (slot = pos %
+W) with their positions beside them; decode attends it through
+`kernels.ops.swa_decode_attention`.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ class QuantKVCache(NamedTuple):
     v: torch.Tensor
     k_scale: torch.Tensor  # bf16 [B, S_max, KV]
     v_scale: torch.Tensor
+
+
+class SWACache(NamedTuple):
+    """Sliding-window ring: slot = pos % W. pos: [B, W] int32 (-1 = empty)."""
+    k: torch.Tensor   # [B, W, KV, hd]
+    v: torch.Tensor
+    pos: torch.Tensor
 
 
 class PagedKVCache(NamedTuple):
@@ -76,6 +85,18 @@ def init_kv_cache(batch: int, max_len: int, cfg: ModelConfig, device,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_swa_cache(batch: int, cfg: ModelConfig, device, dtype=None,
+                   window: int = 0) -> SWACache:
+    """An empty ring of width `window or cfg.sliding_window`."""
+    dtype = dtype or cfg.dtype()
+    W = window or cfg.sliding_window
+    shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
+    return SWACache(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device),
+                    pos=torch.full((batch, W), -1, dtype=torch.int32,
+                                   device=device))
 
 
 def _int8_arrays(shape, device, scale_dtype):
@@ -182,6 +203,23 @@ def quant_kv_write_rows(cache: QuantKVCache, k_new: torch.Tensor,
     return cache
 
 
+def swa_write(cache: SWACache, k_new: torch.Tensor, v_new: torch.Tensor,
+              positions: torch.Tensor) -> SWACache:
+    """Scatter [B, T, KV, hd] at ring slots positions % W, in place, and
+    record the positions. positions: [B, T]. With T > W only the last W
+    entries are written (the earlier ones would be overwritten)."""
+    W = cache.k.shape[1]
+    if k_new.shape[1] > W:
+        k_new, v_new, positions = k_new[:, -W:], v_new[:, -W:], positions[:, -W:]
+    positions = positions.long()
+    rows = torch.arange(cache.k.shape[0], device=k_new.device)[:, None]
+    slots = positions % W
+    cache.k[rows, slots] = k_new.to(cache.k.dtype)
+    cache.v[rows, slots] = v_new.to(cache.v.dtype)
+    cache.pos[rows, slots] = positions.to(cache.pos.dtype)
+    return cache
+
+
 # -- cached attention -----------------------------------------------------------
 
 def attend_full_cache(q: torch.Tensor, cache: AnyKVCache,
@@ -196,6 +234,14 @@ def attend_full_cache(q: torch.Tensor, cache: AnyKVCache,
         k = k.to(q.dtype) * cache.k_scale[..., None].to(q.dtype)
         v = v.to(q.dtype) * cache.v_scale[..., None].to(q.dtype)
     return gqa_attend(q, k, v, q_pos, k_pos, causal=True)
+
+
+def attend_swa_cache(q: torch.Tensor, cache: SWACache, q_pos: torch.Tensor,
+                     window: int) -> torch.Tensor:
+    """Sliding-window attention against the ring (the reference's jnp
+    formulation; decode goes through `ops.swa_decode_attention`)."""
+    return gqa_attend(q, cache.k, cache.v, q_pos, cache.pos.long(),
+                      k_valid=cache.pos >= 0, causal=True, window=window)
 
 
 # -- paged writes / attention ----------------------------------------------------

@@ -182,6 +182,49 @@ def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return y, (pre if capture else None)
 
 
+# -- predictor-driven segment top-k decode FFN (serve_sparse) ------------------
+
+def init_ffn_predictor(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Per-layer predictor that scores neuron SEGMENTS (`cfg.sparse_seg`
+    contiguous neurons) from the FFN input: relu(x @ w1) @ w2."""
+    n_seg = cfg.d_ff // cfg.sparse_seg
+    h = 128
+    dt = cfg.pdtype()
+    return {"w1": _normal(gen, (cfg.d_model, h), dt, cfg.d_model ** -0.5),
+            "w2": _normal(gen, (h, n_seg), dt, h ** -0.5)}
+
+
+def predict_segments(pred: Params, x: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The `k = max(1, int(n_seg * sparse_frac))` segments with the largest
+    predictor scores summed over every row of x [B, T, d] (the union over
+    the batch): int32 [k], highest score first."""
+    B, T, d = x.shape
+    n_seg = cfg.d_ff // cfg.sparse_seg
+    k_seg = max(1, int(n_seg * cfg.sparse_frac))
+    scores = torch.relu(x.reshape(B * T, d) @ pred["w1"].to(x.dtype))
+    scores = scores @ pred["w2"].to(x.dtype)                      # [B*T, n_seg]
+    union = scores.float().sum(dim=0)
+    return torch.topk(union, k_seg).indices.to(torch.int32)
+
+
+def sparse_ffn_decode(p: Params, pred: Params, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """x: [B, T, d]. Segment-top-k FFN: only the predicted segments of
+    w_up / w_gate / w_down are read, through `ops.sparse_ffn_segments` (the
+    hand-written kernel on the card) on `w_up.T` / `w_gate.T` views of the
+    resident [d, d_ff] weights, so no weight is copied. Exact for ReLU
+    models whenever the predicted segments cover the true support."""
+    from repro_torch.kernels import ops   # the kernels import this module
+    B, T, d = x.shape
+    y = ops.sparse_ffn_segments(
+        x.reshape(B * T, d), p["w_up"].T, p["w_down"],
+        predict_segments(pred, x, cfg),
+        p["w_gate"].T if "w_gate" in p else None,
+        seg_size=cfg.sparse_seg, activation=cfg.activation)
+    return y.reshape(B, T, d).to(x.dtype)
+
+
 # -- embeddings ----------------------------------------------------------------
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:

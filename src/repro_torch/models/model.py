@@ -3,11 +3,12 @@
 Entry points (functions of (params, batch), like the reference's):
   init_params(generator)                     — seeded parameter init
   forward(params, batch, capture=False)      — logits (+ FFN captures)
-  init_cache(batch, max_len)                 — contiguous KV cache (int8
-                                               when cfg.kv_quant)
+  init_cache(batch, max_len, swa=False)      — contiguous KV cache (int8
+                                               when cfg.kv_quant), or with
+                                               swa the sliding-window rings
   init_paged_cache(num_pages, page_size)     — paged KV arenas
-  prefill(params, batch, cache)              — (logits_last, cache)
-  decode_step(params, tokens, position, cache, page_tables=None)
+  prefill(params, batch, cache, window=0)    — (logits_last, cache)
+  decode_step(params, tokens, position, cache, page_tables=None, window=0)
                                              — (logits, cache)
 
 Params are nested dicts of tensors on `model.device`: {"embed": {...},
@@ -78,6 +79,9 @@ class Model:
     # -- serving -------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, swa: bool = False,
                    dtype=None) -> Any:
+        """Per-slot caches: contiguous [batch, max_len] KV (int8 when
+        `cfg.kv_quant`), or with `swa` float rings of `cfg.sliding_window`
+        slots."""
         return transformer.init_stack_cache(self.cfg, batch, max_len,
                                             self.device, swa=swa, dtype=dtype)
 
@@ -101,18 +105,20 @@ class Model:
         return unembed(params["embed"], h, cfg), cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor, position,
-                    cache: Any, page_tables: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, Any]:
+                    cache: Any, page_tables: Optional[torch.Tensor] = None,
+                    window: int = 0) -> Tuple[torch.Tensor, Any]:
         """tokens: [B, 1]; position: a scalar shared by the batch, or a [B]
         vector of per-slot positions (continuous-batching decode).
         `page_tables` [B, max_pages] int32 routes a paged cache (from
-        `init_paged_cache`; per-slot positions required). Updates `cache`
-        in place."""
+        `init_paged_cache`; per-slot positions required); `window` is a
+        sliding-window cache's attention window (0: `cfg.sliding_window`).
+        Updates `cache` in place."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
         h, cache = transformer.stack_decode_step(params["stack"], x, position,
                                                  cache, cfg,
-                                                 page_tables=page_tables)
+                                                 page_tables=page_tables,
+                                                 window=window)
         h = apply_norm(params["final_norm"], h, cfg)
         return unembed(params["embed"], h, cfg), cache
 

@@ -9,9 +9,12 @@ dense decoder-only models the port serves, the period is 1, so group g is
 layer g.
 
 Decode attention over a paged arena goes through
-`kernels.ops.paged_decode_attention` (the hand-written kernel on the card).
-Only attention mixers and dense FFNs are ported; SSM and MoE sublayers, and
-the predictor-driven `serve_sparse` decode, raise ValueError.
+`kernels.ops.paged_decode_attention`, over a sliding-window ring
+(`swa=True` caches) through `kernels.ops.swa_decode_attention`, and the
+predictor-driven `serve_sparse` decode FFN through
+`kernels.ops.sparse_ffn_segments` (the hand-written kernels on the card).
+Only attention mixers and dense FFNs are ported; SSM and MoE sublayers
+raise ValueError.
 """
 from __future__ import annotations
 
@@ -22,18 +25,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.kvcache import (KVCache, PagedKVCache,
                                         PagedQuantKVCache, QuantKVCache,
-                                        attend_full_cache,
+                                        SWACache, attend_full_cache,
                                         init_kv_cache, init_paged_kv_cache,
                                         init_paged_quant_kv_cache,
-                                        init_quant_kv_cache, kv_write,
-                                        kv_write_rows, paged_kv_write_rows,
+                                        init_quant_kv_cache, init_swa_cache,
+                                        kv_write, kv_write_rows,
+                                        paged_kv_write_rows,
                                         paged_quant_kv_write_rows,
                                         paged_targets, quant_kv_write,
-                                        quant_kv_write_rows)
+                                        quant_kv_write_rows, swa_write)
 from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        attention_forward, ffn_forward,
-                                       init_attention, init_ffn, init_norm,
-                                       rope)
+                                       init_attention, init_ffn,
+                                       init_ffn_predictor, init_norm, rope,
+                                       sparse_ffn_decode)
 
 Params = Dict[str, Any]
 
@@ -62,9 +67,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if not ffns <= {"dense", "none"}:
         raise ValueError(f"{cfg.arch_id}: FFN kinds {sorted(ffns)} — only "
                          f"dense FFNs are ported (MoE comes later)")
-    if cfg.serve_sparse:
-        raise ValueError("serve_sparse (predictor segment top-k decode) is "
-                         "not ported to PyTorch yet")
 
 
 # -- init ---------------------------------------------------------------------
@@ -75,6 +77,8 @@ def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, ffn: str) -> Params:
     if ffn == "dense":
         p["norm2"] = init_norm(cfg, gen.device)
         p["ffn"] = init_ffn(gen, cfg)
+        if cfg.serve_sparse:
+            p["ffn_pred"] = init_ffn_predictor(gen, cfg)
     return p
 
 
@@ -130,16 +134,17 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                      swa: bool = False, dtype=None) -> List[Params]:
-    """Per group, {"sub_j": KVCache [batch, max_len, KV, hd]}, or the int8
-    `QuantKVCache` when `cfg.kv_quant`."""
-    if swa:
-        raise NotImplementedError(
-            "sliding-window (swa) caches are not ported to PyTorch yet")
+    """Per group, {"sub_j": KVCache [batch, max_len, KV, hd]}, the int8
+    `QuantKVCache` when `cfg.kv_quant`, or with `swa` a float `SWACache`
+    ring of `cfg.sliding_window` slots a row (whatever `max_len` and
+    `kv_quant` say, as in the reference)."""
     check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
 
     def one():
+        if swa:
+            return init_swa_cache(batch, cfg, device, dtype)
         if cfg.kv_quant:
             return init_quant_kv_cache(batch, max_len, cfg, device)
         return init_kv_cache(batch, max_len, cfg, device, dtype)
@@ -197,8 +202,11 @@ def stack_prefill(stack: List[Params], x: torch.Tensor,
         mix, k, v = attention_forward(sp["mixer"], normed, positions, cfg,
                                       window=window)
         cj = group_cache[f"sub_{j}"]
-        (quant_kv_write if isinstance(cj, QuantKVCache) else kv_write)(
-            cj, k, v, 0)
+        if isinstance(cj, SWACache):
+            swa_write(cj, k, v, positions)
+        else:
+            (quant_kv_write if isinstance(cj, QuantKVCache) else kv_write)(
+                cj, k, v, 0)
         h = h + mix
         if ffn == "dense":
             y, _ = ffn_forward(sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)
@@ -249,14 +257,19 @@ def _paged_step(position, page_tables: Optional[torch.Tensor],
 
 def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
                   pos_arr: torch.Tensor, position, cfg: ModelConfig,
-                  paged: Optional[PagedStep] = None) -> Tuple[torch.Tensor, Any]:
+                  paged: Optional[PagedStep] = None, window: int = 0,
+                  swa_cur: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Any]:
     """One attention sublayer for a single decode token: (mix [B,1,d], cache).
 
     `position` is a shared scalar or a per-slot [B] vector; the contiguous
     cache writes pick the matching (slice vs per-row scatter) variant. A
     paged arena takes its write through `paged.targets` and attends through
-    `ops.paged_decode_attention` (the plain version on the CPU, the
-    hand-written kernel on the card)."""
+    `ops.paged_decode_attention`; a sliding-window ring is written at
+    pos % W and attended through `ops.swa_decode_attention` with the
+    per-row positions `swa_cur` and `window or cfg.sliding_window` (both
+    ops: the plain version on the CPU, the hand-written kernel on the
+    card)."""
     normed = apply_norm(sp["norm1"], h, cfg)
     q, k, v = _project_qkv(sp["mixer"], normed, normed, cfg)
     q = rope(q, pos_arr, cfg.rope_theta)
@@ -278,6 +291,14 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
         # [B, H, hd] f32 back to the [B, 1, H*hd] residual layout
         B, H, hd = out.shape
         mix = out.reshape(B, 1, H * hd).to(q.dtype)
+    elif isinstance(cj, SWACache):
+        from repro_torch.kernels import ops
+        cj = swa_write(cj, k, v, pos_arr)
+        out = ops.swa_decode_attention(q[:, 0].contiguous(), cj.k, cj.v,
+                                       cj.pos, swa_cur,
+                                       window=window or cfg.sliding_window)
+        B, H, hd = out.shape
+        mix = out.reshape(B, 1, H * hd)
     elif isinstance(cj, QuantKVCache):
         cj = (quant_kv_write_rows(cj, k, v, pos_arr[:, 0]) if per_row
               else quant_kv_write(cj, k, v, position))
@@ -302,12 +323,16 @@ def stack_decode_step_layerwise(
     cfg: ModelConfig,
     ffn_override: Optional[FFNOverride] = None,
     page_tables: Optional[torch.Tensor] = None,   # [B, max_pages] int32
+    window: int = 0,
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One decode step over every layer, on the host loop.
 
     `ffn_override(dense_layer_idx, normed2 [B,1,d]) -> y [B,1,d]` intercepts
     every dense-FFN sublayer — the offload serving path computes those from
-    flash bundle payloads instead of the resident weights.
+    flash bundle payloads instead of the resident weights. Without it a
+    `cfg.serve_sparse` model takes the predictor's segment top-k FFN
+    (`sparse_ffn_decode`), else the dense FFN. `window` is the
+    sliding-window rings' attention window (0: `cfg.sliding_window`).
     `dense_layer_idx` counts dense FFN sublayers in (group, sublayer) order,
     the same order `stack_forward(capture_activations=True)` stacks
     `ffn_pre_act`, so calibration traces and serving agree on layer ids.
@@ -316,6 +341,10 @@ def stack_decode_step_layerwise(
     B = x.shape[0]
     pos_arr = _decode_positions(position, B, x.device)
     paged = _paged_step(position, page_tables, cache_groups)
+    first = next(iter(cache_groups[0].values())) if cache_groups else None
+    # one [B] int32 copy of the positions per step, for every ring
+    swa_cur = (pos_arr[:, 0].to(torch.int32)
+               if isinstance(first, SWACache) else None)
     h = x
     dense_idx = 0
     P = stack_period(cfg)
@@ -325,12 +354,15 @@ def stack_decode_step_layerwise(
             sp = group_params[f"sub_{j}"]
             mix, group_cache[f"sub_{j}"] = _mixer_decode(
                 sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
-                paged)
+                paged, window, swa_cur)
             h = h + mix
             if ffns[j] == "dense":
                 normed2 = apply_norm(sp["norm2"], h, cfg)
                 if ffn_override is not None:
                     y2 = ffn_override(dense_idx, normed2)
+                elif cfg.serve_sparse:
+                    y2 = sparse_ffn_decode(sp["ffn"], sp["ffn_pred"],
+                                           normed2, cfg)
                 else:
                     y2, _ = ffn_forward(sp["ffn"], normed2, cfg)
                 dense_idx += 1
@@ -340,10 +372,11 @@ def stack_decode_step_layerwise(
 
 def stack_decode_step(stack: List[Params], x: torch.Tensor, position,
                       cache: List[Params], cfg: ModelConfig,
-                      page_tables: Optional[torch.Tensor] = None
+                      page_tables: Optional[torch.Tensor] = None,
+                      window: int = 0
                       ) -> Tuple[torch.Tensor, List[Params]]:
-    """Resident decode step: `stack_decode_step_layerwise` with the dense
-    FFN on the resident weights (the reference's scan and its layerwise
-    loop run the same math; in the port they are one loop)."""
+    """Resident decode step: `stack_decode_step_layerwise` with the FFN on
+    the resident weights (the reference's scan and its layerwise loop run
+    the same math; in the port they are one loop)."""
     return stack_decode_step_layerwise(stack, x, position, cache, cfg,
-                                       page_tables=page_tables)
+                                       page_tables=page_tables, window=window)

@@ -470,13 +470,11 @@ def validate_pack_for_model(pack, cfg: ModelConfig) -> None:
             + "; ".join(mismatches))
 
 
-def reject_unported(*, prefetch: bool = False, oracle: bool = True,
-                    swa: bool = False) -> None:
+def reject_unported(*, prefetch: bool = False, oracle: bool = True) -> None:
     """Raise NotImplementedError for serving options whose slice has not
     landed in the port yet (they are never silently ignored)."""
     unported = [(prefetch, "the prefetch pipeline (prefetch=True)"),
-                (not oracle, "trained predictors (oracle=False)"),
-                (swa, "sliding-window caches (swa=True)")]
+                (not oracle, "trained predictors (oracle=False)")]
     for hit, what in unported:
         if hit:
             raise NotImplementedError(f"{what} is not ported to PyTorch yet")
@@ -500,7 +498,7 @@ class ServingEngine:
                  device: DeviceLike = None):
         if mode not in ("resident", "offload"):
             raise ValueError(f"unknown serving mode {mode!r}")
-        reject_unported(prefetch=prefetch, oracle=oracle, swa=swa)
+        reject_unported(prefetch=prefetch, oracle=oracle)
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
         if pack_path is not None:
@@ -512,6 +510,7 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.max_len = max_len
+        self.swa = swa
         self.mode = mode
         self.offload = offload
         self._owns_offload = pack_path is not None   # we built it: we close it
@@ -535,8 +534,9 @@ class ServingEngine:
             return []
         server = InferenceServer(
             self.model, self.params, max_slots=len(requests),
-            max_len=self.max_len, mode=self.mode, offload=self.offload,
-            scheduler=self.scheduler, seed=seed, device=self.device)
+            max_len=self.max_len, swa=self.swa, mode=self.mode,
+            offload=self.offload, scheduler=self.scheduler, seed=seed,
+            device=self.device)
         try:
             handles = [server.submit(r) for r in requests]
             server.drain()

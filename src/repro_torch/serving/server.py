@@ -176,6 +176,10 @@ class InferenceServer:
             ...
         server.close()
 
+    `swa=True` replaces the per-slot contiguous caches with sliding-window
+    rings of `cfg.sliding_window` slots (prefill attends the whole prompt,
+    decode the last `cfg.sliding_window` positions), resident or offload.
+
     Paged KV: set BOTH `page_size` and `num_pages` to replace the per-slot
     contiguous caches with a shared page arena (`serving/paging.py`) —
     attention-only decoder stacks, no `swa`. `page_overcommit=False`
@@ -192,7 +196,7 @@ class InferenceServer:
     its layer stores.
 
     Options whose slice has not been ported (`prefetch=True`,
-    `oracle=False`, `swa`) raise NotImplementedError.
+    `oracle=False`) raise NotImplementedError.
     """
 
     def __init__(self, model: Model, params: Any, *, max_slots: int = 4,
@@ -221,7 +225,7 @@ class InferenceServer:
         if page_size is not None and swa:
             raise ValueError("paged KV cache does not combine with swa "
                              "(sliding-window rings are per-slot, not paged)")
-        reject_unported(prefetch=prefetch, oracle=oracle, swa=swa)
+        reject_unported(prefetch=prefetch, oracle=oracle)
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
         cfg = model.cfg
@@ -249,6 +253,7 @@ class InferenceServer:
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
+        self.swa = swa
         self.mode = mode
         self.offload = offload
         self._owns_offload = pack_path is not None   # we built it: we close it
@@ -297,7 +302,7 @@ class InferenceServer:
                                   overcommit=page_overcommit,
                                   device=self.device)
         else:
-            self._cache = model.init_cache(max_slots, max_len)
+            self._cache = model.init_cache(max_slots, max_len, swa=swa)
         if mode == "offload":
             self._w_ups = _oracle_w_ups(model, params)
             if len(self._w_ups) != offload.n_layers:
@@ -686,7 +691,7 @@ class InferenceServer:
             tr = get_tracer()
             t0u = tr.now()
             t0 = time.perf_counter()
-            small = self.model.init_cache(1, self.max_len)
+            small = self.model.init_cache(1, self.max_len, swa=self.swa)
             with torch.inference_mode():
                 logits, small = self._prefill_fn(self.params, prompt, small)
             row = logits[0, -1].float().cpu().numpy()   # forces the sync
@@ -720,9 +725,11 @@ class InferenceServer:
 
     def _write_slot(self, slot: int, small_cache: Any) -> None:
         """Copy a freshly prefilled B=1 cache into row `slot` of the pool,
-        in place. Stale KV beyond the new prompt is harmless: decode writes
-        a position's KV before attending to it, and causal masking hides
-        everything past the current position."""
+        in place: every leaf of the row, a ring's positions included, so a
+        reused slot keeps nothing of its last request. Stale KV beyond the
+        new prompt is harmless: decode writes a position's KV before
+        attending to it, and causal masking hides everything past the
+        current position."""
         for big_g, small_g in zip(self._cache, small_cache):
             for name, big in big_g.items():
                 for big_leaf, small_leaf in zip(big, small_g[name]):

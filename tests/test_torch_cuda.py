@@ -14,7 +14,10 @@ version's matmuls; rtol = atol = 1e-5 for the paged-attention kernel,
 whose online softmax sums over the rows in another order than the plain
 version's softmax and einsum.
 The co-activation kernel has no tolerance: its counts are exact integers,
-compared with `torch.equal`.
+compared with `torch.equal`. The sliding-window kernel is held to 1e-5 in
+float32 (online softmax, like the paged kernel) and 2e-2 in bfloat16 (one
+rounding of the output); the unfused segment kernel to 1e-4, like the
+fused one.
 """
 import numpy as np
 import pytest
@@ -23,8 +26,12 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_decode import (paged_decode_attention_cuda,
                                               paged_decode_attention_plain)
-from repro_torch.kernels.sparse_ffn import (sparse_ffn_segments_fused_cuda,
-                                            sparse_ffn_segments_fused_plain)
+from repro_torch.kernels.sparse_ffn import (sparse_ffn_segments_cuda,
+                                            sparse_ffn_segments_fused_cuda,
+                                            sparse_ffn_segments_fused_plain,
+                                            sparse_ffn_segments_plain)
+from repro_torch.kernels.swa_decode import (swa_decode_attention_cuda,
+                                            swa_decode_attention_plain)
 
 pytestmark = pytest.mark.cuda
 SEG = 128
@@ -358,3 +365,239 @@ def test_pack_built_and_served_on_card(dev, tmp_path):
     for h, m in zip(packed, memory):
         assert h.result.tokens == m.result.tokens
         assert h.result.io_seconds == m.result.io_seconds > 0
+
+
+# -- sliding-window decode kernel (swa) ----------------------------------------
+
+SWA_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+           # one bf16 rounding of the output apart (tests/test_kernels.py)
+           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _swa_inputs(dev, seed, B, H, KV, hd, W, curs, dtype):
+    """q and rings in `dtype`, each row's ring holding positions up to its
+    cur (a cur of -1 leaves the row empty), wrapped where cur >= W."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, W, KV, hd)).astype(np.float32)
+    pos = np.full((B, W), -1, np.int32)
+    for b, c in enumerate(curs):
+        for p in range(max(0, c - W + 1), c + 1):
+            pos[b, p % W] = p
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    dt = getattr(torch, dtype)
+    cur = torch.tensor([max(c, 0) for c in curs], dtype=torch.int32,
+                       device=dev)
+    return t(q).to(dt), t(k).to(dt), t(v).to(dt), t(pos), cur
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,W,window", [
+    (1, 4, 1, 64, 512, 256), (2, 8, 2, 64, 1024, 512), (3, 6, 6, 32, 256, 128),
+    (4, 16, 16, 64, 2048, 2048), (2, 32, 8, 128, 1000, 1000),
+    (2, 16, 2, 128, 300, 77), (1, 4, 1, 256, 96, 96)])
+def test_swa_kernel_matches_plain_on_card(dev, dtype, B, H, KV, hd, W,
+                                          window):
+    """Rows at their own positions: wrapped, short and (row 1) empty; the
+    per-row and the scalar cur forms; the same bits on a second launch."""
+    curs = [W + W // 3, -1, 5, 2 * W - 1][:B]
+    q, k, v, pos, cur = _swa_inputs(dev, B * W, B, H, KV, hd, W, curs, dtype)
+    ops.reset_counts()
+    out = ops.swa_decode_attention(q, k, v, pos, cur, window=window)
+    c = ops.counts["swa_decode"]
+    assert (c.launches, c.plain_calls) == (1, 0)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.cuda.synchronize()
+    ref = swa_decode_attention_plain(q, k, v, pos, cur, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **SWA_TOL[dtype])
+    if B > 1:
+        assert float(out[1].float().abs().max()) == 0.0     # the empty row
+    assert torch.equal(out, ops.swa_decode_attention(q, k, v, pos, cur,
+                                                     window=window))
+    scalar = curs[0]
+    ref0 = swa_decode_attention_plain(q, k, v, pos, scalar, window=window)
+    out0 = ops.swa_decode_attention(q, k, v, pos, scalar, window=window)
+    torch.testing.assert_close(out0.float(), ref0.float(), **SWA_TOL[dtype])
+    out0t = ops.swa_decode_attention(
+        q, k, v, pos, torch.tensor(scalar, dtype=torch.int32, device=dev),
+        window=window)
+    assert torch.equal(out0, out0t)
+
+
+def test_swa_kernel_rejects_what_it_does_not_take(dev):
+    q, k, v, pos, cur = _swa_inputs(dev, 0, 2, 4, 2, 32, 64, [70, 3],
+                                    "float32")
+    with pytest.raises(ValueError, match="int32"):
+        swa_decode_attention_cuda(q, k, v, pos.long(), cur, window=8)
+    with pytest.raises(ValueError, match="dtype"):
+        swa_decode_attention_cuda(q, k.half(), v, pos, cur, window=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_decode_attention_cuda(q, k.transpose(1, 2), v, pos, cur, window=8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        swa_decode_attention_cuda(q, k.cpu(), v, pos, cur, window=8)
+    with pytest.raises(ValueError, match="query heads"):
+        q16 = torch.zeros((2, 32, 256), device=dev)
+        k16 = torch.zeros((2, 64, 2, 256), device=dev)
+        swa_decode_attention_cuda(q16, k16, k16, pos, cur, window=8)
+
+
+# -- unfused segment FFN kernel (serve_sparse) -----------------------------------
+
+def _segment_inputs(dev, seed, B, D, N, gated, dtype, transposed):
+    """x, weights [N, D] (w_up / w_gate as transposed views of [D, N]
+    storage when `transposed`, as the model passes them)."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+
+    def mat(std, view):
+        w = torch.from_numpy((rng.standard_normal((N, D)) * std)
+                             .astype(np.float32)).to(dt)
+        return w.T.contiguous().to(dev).T if view else w.to(dev)
+
+    w_up = mat(D ** -0.5, transposed)
+    w_down = mat(N ** -0.5, False)
+    w_gate = mat(D ** -0.5, transposed) if gated else None
+    return x.to(dev), w_up, w_down, w_gate
+
+
+@pytest.mark.parametrize("activation,gated", [("relu", False), ("relu2", False),
+                                              ("gelu", False), ("silu", True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transposed", [True, False], ids=["views", "rows"])
+def test_segments_kernel_matches_plain_on_card(dev, activation, gated, dtype,
+                                               transposed):
+    """Odd shapes on purpose: B above the kernel's 8-row register block, D
+    not a multiple of its 256-column chunk, ids out of order with -1
+    padding and a repeat."""
+    x, w_up, w_down, w_gate = _segment_inputs(dev, 3, B=11, D=520,
+                                              N=6 * SEG, gated=gated,
+                                              dtype=dtype,
+                                              transposed=transposed)
+    ids = torch.tensor([4, -1, 0, 5, 4, -1], dtype=torch.int32, device=dev)
+    kw = dict(seg_size=SEG, activation=activation)
+    ops.reset_counts()
+    y = ops.sparse_ffn_segments(x, w_up, w_down, ids, w_gate, **kw)
+    c = ops.counts["sparse_ffn_segments"]
+    assert (c.launches, c.plain_calls) == (1, 0)
+    torch.cuda.synchronize()
+    ref = sparse_ffn_segments_plain(x, w_up, w_down, ids, w_gate, **kw)
+    torch.testing.assert_close(y, ref, **TOL)
+    assert torch.equal(y, ops.sparse_ffn_segments(x, w_up, w_down, ids,
+                                                  w_gate, **kw))
+
+
+@pytest.mark.parametrize("B,D,N,seg,S", [(4, 1024, 4096, 128, 4),
+                                         (4, 4096, 14336, 128, 16),
+                                         (1, 64, 256, 32, 3)])
+def test_segments_kernel_at_path_shapes(dev, B, D, N, seg, S):
+    """The serve_sparse opt-350m shape, mistral-7b-relu's, and a narrow
+    segment; repeating every id doubles the result."""
+    x, w_up, w_down, _ = _segment_inputs(dev, 5, B, D, N, False, "float32",
+                                         True)
+    ids = torch.randperm(N // seg, device=dev)[:S].to(torch.int32)
+    kw = dict(seg_size=seg)
+    y = ops.sparse_ffn_segments(x, w_up, w_down, ids, **kw)
+    torch.testing.assert_close(
+        y, sparse_ffn_segments_plain(x, w_up, w_down, ids, **kw), **TOL)
+    twice = ops.sparse_ffn_segments(x, w_up, w_down, torch.cat([ids, ids]),
+                                    **kw)
+    torch.testing.assert_close(twice, 2 * y, **TOL)
+
+
+def test_segments_kernel_rejects_what_it_does_not_take(dev):
+    x, w_up, w_down, _ = _segment_inputs(dev, 1, 2, 64, 2 * SEG, False,
+                                         "float32", False)
+    ids = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        sparse_ffn_segments_cuda(x, w_up, w_down, ids.long())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sparse_ffn_segments_cuda(x, w_up.half(), w_down.half(), ids)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sparse_ffn_segments_cuda(x, w_up, w_down, ids, seg_size=48)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sparse_ffn_segments_cuda(x, w_up.cpu(), w_down, ids)
+    assert not ops.sparse_ffn_segments(x, w_up, w_down, ids[:0]).any()
+
+
+# -- the two paths served on the card -------------------------------------------
+
+@pytest.mark.parametrize("mode", ["resident", "offload"])
+def test_swa_server_runs_the_kernel_on_card(dev, mode):
+    """A tiny swa server (window 8, prompts past it, a reused slot): every
+    decode attention launched the kernel, the plain version never ran, and
+    the card's tokens equal the CPU's (the same weights)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, build_offload_runtime
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
+                     n_layers=2, vocab_size=128, sliding_window=8)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 128, T).astype(np.int32)
+               for T in (11, 5, 3, 9, 4)]
+
+    def serve(device):
+        params = build_model(cfg, device="cpu").init_params(
+            torch.Generator().manual_seed(0))
+        model = build_model(cfg, device=device)
+        params = _to(params, device)
+        kw = {}
+        if mode == "offload":
+            kw = dict(mode="offload", offload=build_offload_runtime(
+                model, params, calib_batch=(4, 32), device=device))
+        server = InferenceServer(model, params, max_slots=4, max_len=24,
+                                 swa=True, device=device, **kw)
+        handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+                   for i, p in enumerate(prompts)]
+        ops.reset_counts()
+        server.drain()
+        return [h.result.tokens for h in handles], server.stats.decode_steps
+
+    cpu_tokens, _ = serve("cpu")
+    tokens, steps = serve(dev)
+    c = ops.counts["swa_decode"]
+    assert (c.launches, c.plain_calls) == (steps * cfg.n_layers, 0)
+    assert tokens == cpu_tokens
+
+
+def test_sparse_server_runs_the_kernel_on_card(dev):
+    """A tiny serve_sparse resident server: every decode FFN launched the
+    segment kernel, the plain version never ran, the CPU's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
+                     n_layers=2, vocab_size=128, serve_sparse=True,
+                     sparse_seg=32, sparse_frac=0.4)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (7, 5, 9)]
+
+    def serve(device):
+        params = build_model(cfg, device="cpu").init_params(
+            torch.Generator().manual_seed(0))
+        model = build_model(cfg, device=device)
+        params = _to(params, device)
+        server = InferenceServer(model, params, max_slots=2, max_len=24,
+                                 device=device)
+        handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+                   for i, p in enumerate(prompts)]
+        ops.reset_counts()
+        server.drain()
+        return [h.result.tokens for h in handles], server.stats.decode_steps
+
+    cpu_tokens, _ = serve("cpu")
+    tokens, steps = serve(dev)
+    c = ops.counts["sparse_ffn_segments"]
+    assert (c.launches, c.plain_calls) == (steps * cfg.n_layers, 0)
+    assert tokens == cpu_tokens
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

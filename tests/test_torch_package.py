@@ -180,7 +180,7 @@ def test_unported_options_raise():
     cfg = _tiny_cfg()
     model = build_model(cfg, device="cpu")
     params = model.init_params()
-    for kw in (dict(prefetch=True), dict(oracle=False), dict(swa=True)):
+    for kw in (dict(prefetch=True), dict(oracle=False)):
         with pytest.raises(NotImplementedError):
             InferenceServer(model, params, device="cpu", **kw)
     # pack_path is ported: it needs offload mode (and no offload= runtime)

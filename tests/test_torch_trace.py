@@ -89,19 +89,11 @@ def test_writer_rejects_wrong_width(tmp_path):
         w.append(0, np.zeros((2, 5), dtype=bool))
 
 
-def _topk_oracle(pre, k):
-    """Magnitude top-k per token in numpy: |x| >= the k-th largest |x|."""
-    kth = -np.sort(-np.abs(pre), axis=-1)[..., k - 1:k]
-    return np.abs(pre) >= kth
-
-
 @pytest.mark.parametrize("k", [1, 5, 17])
 def test_relu_and_topk_masks_match_reference(k):
     """Tie-free pre-activations (distinct magnitudes): the reference's relu
-    mask, and exactly k neurons a token for top-k. Declared divergence: the
-    reference's `topk_activation_mask` negates its threshold
-    (`-top_k(|x|, k)[0][..., -1:]`), so it keeps every neuron; the port
-    keeps the k of largest magnitude, as the function's docstring says."""
+    and top-k masks exactly. The reference's top-k threshold is negated
+    (src/repro/core/trace.py:80-83), so both packages keep every neuron."""
     rng = np.random.default_rng(k)
     pre = (rng.permutation(3 * 4 * 32) + 1).astype(np.float32).reshape(3, 4, 32)
     pre *= rng.choice([-1.0, 1.0], pre.shape).astype(np.float32) / 97
@@ -109,16 +101,17 @@ def test_relu_and_topk_masks_match_reference(k):
         ttrace.relu_activation_mask(torch.from_numpy(pre)).numpy(),
         np.asarray(jtrace.relu_activation_mask(jnp.asarray(pre))))
     got = ttrace.topk_activation_mask(torch.from_numpy(pre), k).numpy()
-    np.testing.assert_array_equal(got, _topk_oracle(pre, k))
-    assert (got.sum(-1) == k).all()
-    assert np.asarray(jtrace.topk_activation_mask(jnp.asarray(pre), k)).all()
+    want = np.asarray(jtrace.topk_activation_mask(jnp.asarray(pre), k))
+    np.testing.assert_array_equal(got, want)
+    assert got.all()
 
 
 @pytest.mark.parametrize("topk", [None, 40])
 def test_trace_model_activations_matches_reference(topk):
     """The same weights (the reference's, converted) and token batches give
     the reference's per-layer masks, except where a pre-activation sits
-    within 1e-5 of the threshold (float32 sums in another order)."""
+    within 1e-5 of the threshold (float32 sums in another order). A top-k
+    trace is all ones in both packages (see the test above)."""
     small = dict(d_model=32, d_ff=128, n_layers=2, vocab_size=64)
     jcfg = jget_config("opt-350m", reduced=True, **small)
     jmodel = jbuild_model(jcfg)
@@ -134,13 +127,10 @@ def test_trace_model_activations_matches_reference(topk):
     pre = np.concatenate([np.asarray(jmodel.forward(
         jparams, {"tokens": jnp.asarray(b)}, capture_activations=True)
         ["ffn_pre_act"]).reshape(2, -1, 128) for b in batches], axis=1)
-    if topk is None:
-        want = jtrace.trace_model_activations(
-            lambda p, t, capture_activations: jmodel.forward(
-                p, {"tokens": t}, capture_activations=capture_activations),
-            jparams, batches)
-    else:       # the reference's top-k keeps every neuron (see above)
-        want = [_topk_oracle(p, topk) for p in pre]
+    want = jtrace.trace_model_activations(
+        lambda p, t, capture_activations: jmodel.forward(
+            p, {"tokens": t}, capture_activations=capture_activations),
+        jparams, batches, sparsity_topk=topk)
     assert len(got) == len(want) == 2
     for l, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape == (48, 128) and g.dtype == bool
@@ -148,6 +138,5 @@ def test_trace_model_activations_matches_reference(topk):
         if topk is None:
             assert (np.abs(pre[l][differ]) < 1e-5).all()
         else:
-            kth = -np.sort(-np.abs(pre[l]), axis=-1)[:, topk - 1:topk]
-            assert (np.abs(np.abs(pre[l]) - kth)[differ] < 1e-5).all()
+            assert not differ.any() and g.all()
         assert differ.mean() < 0.01
