@@ -78,20 +78,27 @@ Phases, in order (any failure raises and the script exits non-zero):
      model's window (8192 slots) read in place: opt-350m heads (16 x 64)
      with rows at their own positions (two wrapped rings, a short one, an
      empty one, which must give 0), mistral-7b-relu's (32 query / 8 KV
-     heads x 128) in float32 and bfloat16, and the reference's scalar-cur
-     form; max error, event ms, profiler device ms cold / warm, plain ms,
-     the byte bound (the valid slots' K/V rows and every slot's position),
-     and SDPA with a boolean mask on the same rings as a yardstick.
+     heads x 128) in float32 and bfloat16, the reference's scalar-cur
+     form, qwen2-7b's (28 / 4 x 128, G = 7) in bfloat16, a ragged one (W =
+     8190, a window of W / 3, valid ranges that start and end inside
+     tiles) and hd 36 in bfloat16 on rings 2 bytes off 16-byte alignment
+     (the kernel's narrow path); max error, the same bits over two
+     launches, the launch plan and blocks per SM, event ms, profiler device
+     ms cold / warm, plain ms, the byte bound (the valid slots' K/V rows and
+     every slot's position), and SDPA with a boolean mask on the same rings
+     as a yardstick.
  12. swa: the slice's opt-350m served with `swa=True` (rings of 8192 slots),
-     resident then offload: five requests on four slots, prompts of 8300
-     tokens (wrapped in prefill), 8180 (wraps in decode) and three of 32
-     (the last admitted into a reused slot), 16 new tokens each. Checks:
-     every request finishes by length; swa-kernel launches = decode steps x
-     24 and no plain call, per mode; at uid 0's last token the kernel
-     equals its plain version on layer 0's live rings, whose long rows
-     show the wrap; the reused slot holds only its new request's
-     positions; the short requests' tokens equal a contiguous-cache run's
-     and offload tokens equal resident tokens (margin rule as in 4).
+     resident, offload, then resident with its weights cast to bfloat16
+     (bf16 params, compute and rings): five requests on four slots, prompts
+     of 8300 tokens (wrapped in prefill), 8180 (wraps in decode) and three
+     of 32 (the last admitted into a reused slot), 16 new tokens each.
+     Checks: every request finishes by length; swa-kernel launches = decode
+     steps x 24 and no plain call, per run; at uid 0's last token the
+     kernel equals its plain version on layer 0's live rings (1e-5, bf16
+     2e-2), whose long rows show the wrap; the reused slot holds only its
+     new request's positions; the short requests' tokens equal a
+     contiguous-cache run's and offload tokens equal resident tokens
+     (margin rule as in 4). Breakdowns of the float32 and the bf16 runs.
  13. segment kernel: the unfused segment-FFN kernel against its plain
      version (1e-4) with w_up / w_gate as transposed views of [D, N]
      weights: the serve_sparse shape (B=4, D=1024, N=4096, S=4), mistral-
@@ -142,7 +149,7 @@ COACT_REPLACES = "src/repro/kernels/coact.py:39"
 COACT_KERNELS = ("coact_transpose_kernel", "coact_mma_kernel")
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_decode.cu"
 SWA_REPLACES = "src/repro/kernels/swa_decode.py:103"
-SWA_KERNELS = ("swa_split_kernel", "swa_combine_kernel")
+SWA_KERNELS = ("swa_split_kernel",)
 SEG_SOURCE = "src/repro_torch/kernels/csrc/sparse_ffn_segments.cu"
 SEG_REPLACES = "src/repro/kernels/sparse_ffn.py:203"
 ITERS = 30                     # timed launches per kernel measurement
@@ -896,25 +903,37 @@ SWA_TOL = {"float32": 1e-5,        # online softmax, slots in another order
            "bfloat16": 2e-2}       # one bf16 rounding of the output apart
 SWA_CASES = [
     # name, KV, G, hd, dtype, scalar cur, per-row current positions for a
-    # ring of W slots (-1: an empty row)
-    ("opt350m_serve_f32", 16, 1, 64, "float32", False,
-     lambda W: [W + 126, W + 3, 46, -1]),
-    ("mistral7b_f32", 8, 4, 128, "float32", False,
-     lambda W: [W + 126, W + 3, 46, -1]),
-    ("mistral7b_bf16", 8, 4, 128, "bfloat16", False,
-     lambda W: [W + 126, W + 3, 46, -1]),
+    # ring of W slots (-1: an empty row); optional: W and window from the
+    # phase's W, and the rings' offset in elements into their storage
+    dict(case="opt350m_serve_f32", KV=16, G=1, hd=64, dtype="float32",
+         curs=lambda W: [W + 126, W + 3, 46, -1]),
+    dict(case="mistral7b_f32", KV=8, G=4, hd=128, dtype="float32",
+         curs=lambda W: [W + 126, W + 3, 46, -1]),
+    dict(case="mistral7b_bf16", KV=8, G=4, hd=128, dtype="bfloat16",
+         curs=lambda W: [W + 126, W + 3, 46, -1]),
     # the reference's form: one scalar cur, every ring full and wrapped
-    ("opt350m_scalar_cur_f32", 16, 1, 64, "float32", True,
-     lambda W: [W + 1808] * 4),
+    dict(case="opt350m_scalar_cur_f32", KV=16, G=1, hd=64, dtype="float32",
+         scalar=True, curs=lambda W: [W + 1808] * 4),
+    dict(case="qwen2_7b_bf16", KV=4, G=7, hd=128, dtype="bfloat16",
+         curs=lambda W: [W + 126, W + 3, 46, -1]),
+    # W - 2 slots (no multiple of a tile) and a window of W / 3: the valid
+    # ranges start and end inside tiles, one across the ring's wrap
+    dict(case="ragged_w8190_bf16", KV=8, G=4, hd=128, dtype="bfloat16",
+         W=lambda W: W - 2, window=lambda W: W // 3,
+         curs=lambda W: [W + 1000, 5000, 100, 2 * W - 3]),
+    # 72-byte rows and a ring 2 bytes off 16-byte alignment: the narrow path
+    dict(case="hd36_misaligned_bf16", KV=8, G=4, hd=36, dtype="bfloat16",
+         offset=1, curs=lambda W: [W + 126, W + 3, 46, -1]),
 ]
 REHEARSAL_SWA_W = 128
 
 
-def swa_inputs(gen, KV, G, hd, dtype, scalar, curs, W):
+def swa_inputs(gen, KV, G, hd, dtype, scalar, curs, W, offset=0):
     """q and rings on the card; row b's ring holds its last W positions up
     to curs[b] (slot = pos % W), the rest of the ring empty (-1); random
     K/V everywhere, so the kernel must ignore what is not valid. `scalar`
-    passes one 0-d cur for the batch."""
+    passes one 0-d cur for the batch; the rings start `offset` elements
+    into their storage."""
     import torch
     dev = gen.device
     B = len(curs)
@@ -923,8 +942,14 @@ def swa_inputs(gen, KV, G, hd, dtype, scalar, curs, W):
         p = torch.arange(max(0, c - W + 1), c + 1, dtype=torch.int32)
         pos[b, (p % W).long()] = p
     dt = getattr(torch, dtype)
-    k, v = (torch.randn((B, W, KV, hd), generator=gen, device=dev).to(dt)
-            for _ in range(2))
+
+    def ring():
+        flat = torch.empty(B * W * KV * hd + offset, dtype=dt, device=dev)
+        out = flat[offset:].view(B, W, KV, hd)
+        out.copy_(torch.randn((B, W, KV, hd), generator=gen, device=dev))
+        return out
+
+    k, v = ring(), ring()
     q = torch.randn((B, KV * G, hd), generator=gen, device=dev).to(dt)
     cur = (torch.tensor(curs[0], dtype=torch.int32, device=dev) if scalar
            else torch.tensor([max(c, 0) for c in curs], dtype=torch.int32,
@@ -968,51 +993,62 @@ def swa_sdpa_yardstick(q, k, v, pos, cur, window, flush):
         q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True), flush)
 
 
-def swa_kernel_phase(dev, seed: int, W: int) -> dict:
+def swa_kernel_phase(dev, seed: int, W0: int) -> dict:
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_decode as sd
     from repro_torch.kernels.swa_decode import swa_decode_attention_plain
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     cases = []
-    for name, KV, G, hd, dtype, scalar, cur_fn in SWA_CASES:
-        curs = cur_fn(W)
-        q, k, v, pos, cur = swa_inputs(gen, KV, G, hd, dtype, scalar, curs,
-                                       W)
+    for spec in SWA_CASES:
+        name, dtype = spec["case"], spec["dtype"]
+        W = spec.get("W", lambda w: w)(W0)
+        window = spec.get("window", lambda w: w)(W)
+        curs = spec["curs"](W)
+        q, k, v, pos, cur = swa_inputs(gen, spec["KV"], spec["G"], spec["hd"],
+                                       dtype, spec.get("scalar", False), curs,
+                                       W, spec.get("offset", 0))
         args = (q, k, v, pos, cur)
-        out = ops.swa_decode_attention(*args, window=W)
-        ref = swa_decode_attention_plain(*args, window=W)
+        out = ops.swa_decode_attention(*args, window=window)
+        ref = swa_decode_attention_plain(*args, window=window)
         sync(dev)
         assert out.shape == ref.shape == q.shape and out.dtype == q.dtype
         assert bool(torch.isfinite(out).all()), f"{name}: non-finite"
         err = float((out.float() - ref.float()).abs().max())
         tol = SWA_TOL[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
-        same = bool(torch.equal(out, ops.swa_decode_attention(*args,
-                                                              window=W)))
+        same = bool(torch.equal(out, ops.swa_decode_attention(
+            *args, window=window)))
         empty = [b for b, c in enumerate(curs) if c < 0]
         zero = all(float(out[b].float().abs().max()) == 0.0 for b in empty)
 
         def kernel():
-            return ops.swa_decode_attention(*args, window=W)
+            return ops.swa_decode_attention(*args, window=window)
 
-        bound_ms, bound_by, nbytes, ring_bytes = swa_bound(q, k, pos, cur, W)
+        bound_ms, bound_by, nbytes, ring_bytes = swa_bound(q, k, pos, cur,
+                                                           window)
+        cuda = dev.type == "cuda"
         case = dict(
-            case=name, B=q.shape[0], H=q.shape[1], KV=KV, hd=hd, W=W,
-            dtype=dtype, cur=cur.tolist(), empty_rows=empty,
-            max_abs_err=err, tol=tol, allclose=ok, deterministic=same,
-            empty_rows_zero=zero, ms=time_ms(kernel, flush),
+            case=name, B=q.shape[0], H=q.shape[1], KV=spec["KV"],
+            hd=spec["hd"], W=W, window=window, dtype=dtype,
+            ring_offset_bytes=k.data_ptr() % 16, cur=cur.tolist(),
+            empty_rows=empty, max_abs_err=err, tol=tol, allclose=ok,
+            deterministic=same, empty_rows_zero=zero,
+            plan=sd._plan_for(q, k, v)._asdict() if cuda else None,
+            blocks_per_sm=sd.blocks_per_sm(q, k, v) if cuda else None,
+            ms=time_ms(kernel, flush),
             device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
                                             names=SWA_KERNELS),
             device_warm_ms=kernel_device_ms(kernel, flush, cold=False,
                                             names=SWA_KERNELS),
             plain_ms=time_ms(lambda: swa_decode_attention_plain(
-                *args, window=W), flush),
+                *args, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
             full_ring_bytes=ring_bytes,
             full_ring_bound_ms=ring_bytes / HBM_BYTES_PER_S * 1e3,
-            library_sdpa_mask_ms=(swa_sdpa_yardstick(*args, W, flush)
-                                  if dev.type == "cuda" else None))
+            library_sdpa_mask_ms=(swa_sdpa_yardstick(*args, window, flush)
+                                  if cuda else None))
         emit({"swa_kernel_case": case})
         assert ok, f"{name}: kernel disagrees with the plain version ({err})"
         assert same, f"{name}: two launches gave different bits"
@@ -1042,11 +1078,30 @@ def swa_requests(cfg, seed: int):
             for i, n in enumerate(lens)]
 
 
+def bf16_model(model, params):
+    """The slice's model with bf16 params and compute (so bf16 rings): its
+    weights cast to bf16."""
+    import torch
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(model.cfg, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [cast(v) for v in t]
+        return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+    return build_model(cfg, device=model.device), cast(params)
+
+
 def swa_phase(dev, seed: int, model, params, runtime) -> dict:
-    """`InferenceServer(swa=True)` resident, then offload: counts set to 0
-    just before each run, read just after. At uid 0's last token (every
-    slot live, both long rings wrapped) layer 0's ring is copied, and after
-    the run the kernel is held against its plain version on that copy."""
+    """`InferenceServer(swa=True)` resident, then offload, then resident
+    with the weights in bf16 (bf16 rings): counts set to 0 just before each
+    run, read just after. At uid 0's last token (every slot live, both long
+    rings wrapped) layer 0's ring is copied, and after the run the kernel is
+    held against its plain version on that copy."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.swa_decode import swa_decode_attention_plain
@@ -1057,10 +1112,14 @@ def swa_phase(dev, seed: int, model, params, runtime) -> dict:
     reqs = swa_requests(cfg, seed)
     max_len = max(len(r.prompt) for r in reqs) + SWA_NEW_TOKENS
     n_layers = cfg.n_layers
+    model16, params16 = bf16_model(model, params)
     rows, runs, launches = [], {}, {}
-    for mode in ("resident", "offload"):
+    for mode, m, p in (("resident", model, params),
+                       ("offload", model, params),
+                       ("resident_bf16", model16, params16)):
         server = InferenceServer(
-            model, params, max_slots=4, max_len=max_len, swa=True, mode=mode,
+            m, p, max_slots=4, max_len=max_len, swa=True,
+            mode="offload" if mode == "offload" else "resident",
             offload=runtime if mode == "offload" else None, device=dev)
         snap = {}
 
@@ -1077,7 +1136,8 @@ def swa_phase(dev, seed: int, model, params, runtime) -> dict:
         sync(dev)
         sc = ops.counts["swa_decode"]
         st = server.stats
-        row = {"mode": mode, "requests": len(reqs),
+        row = {"mode": mode, "dtype": str(m.cfg.compute_dtype),
+               "requests": len(reqs),
                "prompt_lens": [len(r.prompt) for r in reqs], "window": W,
                "decode_steps": st.decode_steps,
                "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
@@ -1096,15 +1156,15 @@ def swa_phase(dev, seed: int, model, params, runtime) -> dict:
         cur = pos.max(dim=1).values
         q = torch.randn((4, cfg.n_heads, cfg.head_dim),
                         generator=torch.Generator(device=dev).manual_seed(seed),
-                        device=dev)
+                        device=dev).to(snap["k"].dtype)
         args = (q, snap["k"], snap["v"], pos, cur)
-        out = ops.swa_decode_attention(*args, window=W)
-        ref = swa_decode_attention_plain(*args, window=W)
-        row.update(last_step_cur=cur.tolist(),
+        out = ops.swa_decode_attention(*args, window=W).float()
+        ref = swa_decode_attention_plain(*args, window=W).float()
+        tol = SWA_TOL[str(m.cfg.compute_dtype)]
+        row.update(ring_dtype=str(snap["k"].dtype), last_step_cur=cur.tolist(),
                    last_step_max_abs_err=float((out - ref).abs().max()),
                    reused_slot_valid_positions=None)
-        assert torch.allclose(out, ref, rtol=SWA_TOL["float32"],
-                              atol=SWA_TOL["float32"]), row
+        assert torch.allclose(out, ref, rtol=tol, atol=tol), row
         assert int(cur[0]) >= W and int(cur[1]) >= W, row    # both wrapped
         # uid 4 took over uid 0's slot: its ring holds its own positions only
         h4 = handles[4]
@@ -1134,9 +1194,13 @@ def swa_phase(dev, seed: int, model, params, runtime) -> dict:
                                runs["resident"], max_len, "swa offload",
                                "swa resident", swa=True)
     emit({"swa_checks": {"mismatches": mismatches}})
+    ms = {r["mode"]: r["decode_ms_per_step"] for r in rows}
     breakdown_phase(dev, model, params, runtime, reqs, max_len,
-                    {r["mode"]: r["decode_ms_per_step"] for r in rows},
+                    {k: ms[k] for k in ("resident", "offload")},
                     path="swa", kernels=SWA_KERNELS, swa=True)
+    breakdown_phase(dev, model16, params16, None, reqs, max_len,
+                    {"resident": ms["resident_bf16"]}, path="swa_bf16",
+                    kernels=SWA_KERNELS, swa=True)
     return {"launches": launches, "rows": rows}
 
 
@@ -1695,7 +1759,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         pk = pack_phase(dev, args.seed, sl, tmp)
         cli_phase(dev, args.seed, tmp, reduced=args.cpu_rehearsal)
-    skern = swa_kernel_phase(dev, args.seed, W=(
+    skern = swa_kernel_phase(dev, args.seed, W0=(
         REHEARSAL_SWA_W if args.cpu_rehearsal
         else sl["model"].cfg.sliding_window))
     sw = swa_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"])
@@ -1709,6 +1773,7 @@ def main(argv=None) -> int:
     paged_case = pkern["cases"][0]
     coact_case = ckern["cases"][0]
     swa_case = skern["cases"][0]
+    swa_bf16 = next(c for c in skern["cases"] if c["case"] == "mistral7b_bf16")
     seg_case = gkern["cases"][0]
     emit({"kernels": [{
         "name": "sparse_ffn_segments_fused", "route": "cuda",
@@ -1759,7 +1824,11 @@ def main(argv=None) -> int:
         "plain_ms": swa_case["plain_ms"],
         "bound_ms": swa_case["bound_ms"],
         "bound_by": swa_case["bound_by"],
-        "library_ms": swa_case["library_sdpa_mask_ms"]}, {
+        "library_ms": swa_case["library_sdpa_mask_ms"],
+        # mistral-7b heads in bf16 (the tensor-core path) beside it
+        "mistral7b_bf16": {k: swa_bf16[k] for k in (
+            "ms", "device_cold_ms", "device_warm_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_sdpa_mask_ms")}}, {
         # the serve_sparse shape (B=4, D=1024, N=4096, S=4, w_up a view)
         "name": "sparse_ffn_segments", "route": "cuda",
         "source": SEG_SOURCE, "replaces": SEG_REPLACES,

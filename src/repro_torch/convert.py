@@ -20,7 +20,14 @@ from repro_torch.models import transformer
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), device=device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (the reference's bf16 leaves come
+        # from an extension dtype named "bfloat16"): move the 16-bit
+        # patterns as they are
+        bits = torch.from_numpy(a.view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
 
 
 def _tree(tree: Any, fn) -> Any:

@@ -9,18 +9,29 @@ source and flags, so an edited source is rebuilt and a stale library is
 never loaded. `build_all()` compiles every source at once, one `nvcc` per
 source, in parallel. `Counts` is the launch bookkeeping every kernel's
 wrapper keeps.
+
+    python -m repro_torch.kernels.build --report swa_decode [--source F.cu]
+
+builds one source (by default `csrc/<name>.cu`) and prints, per kernel,
+`ptxas`'s registers, spills and shared memory and a count of the SASS
+instructions that show how it moves data (global and shared loads by
+width, `cp.async`, shuffles, exponentials, barriers), from `cuobjdump`.
 """
 from __future__ import annotations
 
+import argparse
+import collections
 import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -122,3 +133,64 @@ def load_library(name: str) -> ctypes.CDLL:
                 build_all()
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+# SASS opcodes (with their width suffix) that say how a kernel moves data
+SASS_OPS = re.compile(r"\b(LDG\.E(?:\.[A-Z0-9_]+)*|LDS(?:\.[A-Z0-9_]+)*|"
+                      r"STS(?:\.[A-Z0-9_]+)*|LDGSTS(?:\.[A-Z0-9_]+)*|"
+                      r"SHFL\.[A-Z]+|MUFU\.[A-Z0-9]+|BAR\.[A-Z]+|"
+                      r"LDL(?:\.[A-Z0-9_]+)*|STL(?:\.[A-Z0-9_]+)*|HMMA\S*|"
+                      r"FFMA)\b")
+
+
+def report(name: str, source: Optional[Path] = None) -> str:
+    """Build `source` (default `csrc/<name>.cu`) with NVCC_FLAGS and return
+    ptxas's per-kernel report and the SASS opcode counts per kernel."""
+    src = Path(source) if source else CSRC / f"{name}.cu"
+    out = build_dir() / f"report-{name}-{os.getpid()}.so"
+    done = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}{done.stderr}")
+    lines = [f"== {src}", "-- ptxas"]
+    lines += [ln for ln in (done.stdout + done.stderr).splitlines()
+              if "Compiling entry" in ln or "registers" in ln
+              or "spill" in ln]
+    sass = subprocess.run([str(Path(find_nvcc()).parent / "cuobjdump"),
+                           "--dump-sass", str(out)], capture_output=True,
+                          text=True, check=True).stdout
+    kernel, ops = None, collections.Counter()
+
+    def flush():
+        if kernel is not None:
+            lines.append(f"-- sass {kernel}: " + ", ".join(
+                f"{op} {n}" for op, n in sorted(ops.items())))
+
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            flush()
+            kernel, ops = m.group(1), collections.Counter()
+        elif kernel is not None:
+            ops.update(SASS_OPS.findall(ln))
+    flush()
+    out.unlink()
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="build the port's CUDA kernels")
+    ap.add_argument("--report", metavar="NAME",
+                    help="print ptxas's and the SASS's summary of one kernel")
+    ap.add_argument("--source", help="with --report: another .cu to build")
+    args = ap.parse_args(argv)
+    if args.report:
+        print(report(args.report, args.source))
+    else:
+        for path in build_all().values():
+            print(path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,9 @@ slot sits at its own position). A row with no valid slot gives 0. Ring and
 query are float32 or bfloat16 (all three alike); the result has q's dtype.
 
 `swa_decode_attention_cuda` launches the hand-written kernel in
-`csrc/swa_decode.cu` (see the note there for its bound and design);
+`csrc/swa_decode.cu` (see the note there for its bound and design) as
+`plan` cuts the rings: tiles of slots, splits of whole tiles along W, and
+the 16-byte or the narrow (one element a lane) load path;
 `swa_decode_attention_plain` is the reference oracle's math
 (`ref.swa_decode_ref`) in the same order: float32 scores, masked to -1e30,
 softmax, the value product, zeros for an empty row.
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Union
+from typing import Dict, NamedTuple, Union
 
 import torch
 
@@ -32,8 +34,11 @@ from repro_torch.kernels.build import Counts, load_library
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-SLOTS_PER_PASS = 32      # slots a block's 8 warps take per pass (8 x 4 rows)
+THREADS = 256            # a block's threads (csrc: kThreads)
+PASSES = 4               # slot passes per tile (csrc: kPasses)
 BLOCKS_PER_SM = 4        # split target: enough blocks in flight per SM
+MIN_TILES = 4            # tiles a split takes at least, where W allows
+MAX_CHUNK = 2048         # slots a split takes at most (csrc: kMaxChunk)
 
 counts = Counts()   # this kernel's own launch / plain-call counters
 
@@ -76,18 +81,30 @@ def swa_decode_attention_plain(
     return out.reshape(B, H, hd).to(q.dtype)
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"swa_decode_attention: {msg}")
+def _fail(msg: str) -> None:
+    raise ValueError(f"swa_decode_attention: {msg}")
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.swa_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _merge_tickets(n: int, dev: torch.device) -> torch.Tensor:
+    """int32 [>= n] of zeros on `dev`: the kernel's merge tickets, which
+    every launch leaves at zero again, so they are allocated once."""
+    t = _tickets.get(dev)
+    if t is None or t.numel() < n:
+        t = _tickets[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,13 +112,67 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def n_splits(B: int, KV: int, W: int, sms: int) -> int:
-    """Blocks each (row, KV head) ring is split into: enough for
-    BLOCKS_PER_SM blocks on every SM, and no block with fewer than
-    SLOTS_PER_PASS * 8 slots."""
+class SwaPlan(NamedTuple):
+    """How one launch cuts the rings (`csrc/swa_decode.cu`'s geometry)."""
+    narrow: bool     # element-wise instantiation (no 16-byte cp.async)
+    tile: int        # slots a block takes per step
+    chunk: int       # slots per split, a whole number of tiles
+    splits: int      # blocks along W per (row, KV head); none is empty
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, KV: int, G: int, hd: int, W: int, elt: int, sms: int,
+         aligned: bool = True) -> SwaPlan:
+    """The launch's tile, split count and load width for rings [B, W, KV,
+    hd] of `elt`-byte elements on a card of `sms` SMs. The 16-byte path
+    needs rows of a multiple of 16 bytes and `aligned` (both rings' bases
+    16-byte aligned); otherwise the narrow path. The tile is THREADS *
+    PASSES / lanes slots, lanes being the threads that share a row's
+    chunks (the kernel's `geometry`). Splits: enough for BLOCKS_PER_SM
+    blocks on every SM, each at least MIN_TILES tiles where W allows and
+    at most MAX_CHUNK slots, every split a whole number of tiles, and the
+    last one not empty."""
+    narrow = not aligned or (hd * elt) % 16 != 0
+    chunks = hd if narrow else hd * elt // 16
+    lanes = min(32, max(4, 1 << (chunks - 1).bit_length()))
+    tile = THREADS * PASSES // lanes
+    tiles = max(1, -(-W // tile))
     want = -(-BLOCKS_PER_SM * sms // max(B * KV, 1))
-    most = max(1, -(-W // (SLOTS_PER_PASS * 8)))
-    return max(1, min(want, most))
+    splits = max(1, min(want, tiles // MIN_TILES),
+                 -(-tiles // (MAX_CHUNK // tile)))
+    chunk = -(-tiles // splits) * tile
+    return SwaPlan(narrow, tile, chunk, max(1, -(-W // chunk)))
+
+
+def _plan_for(q: torch.Tensor, k_cache: torch.Tensor,
+              v_cache: torch.Tensor) -> SwaPlan:
+    B, H, hd = q.shape
+    W, KV = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    return plan(B, KV, H // KV, hd, W, q.element_size(),
+                _sm_count(dev.index if dev.index is not None
+                          else torch.cuda.current_device()),
+                aligned=k_cache.data_ptr() % 16 == 0
+                and v_cache.data_ptr() % 16 == 0)
+
+
+def blocks_per_sm(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor) -> int:
+    """How many blocks of the split kernel one SM holds at once for these
+    inputs (CUDA occupancy of the instantiation a launch would take)."""
+    p = _plan_for(q, k_cache, v_cache)
+    fn = load_library("swa_decode").swa_decode_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        err = fn(q.shape[1] // k_cache.shape[2], q.shape[2], k_cache.shape[1],
+                 p.chunk, p.tile, int(p.narrow), DTYPES[q.dtype],
+                 ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"swa_decode_blocks_per_sm failed with CUDA "
+                           f"error {err}")
+    return n.value
 
 
 def swa_decode_attention_cuda(
@@ -116,55 +187,62 @@ def swa_decode_attention_cuda(
     """Launch the Hopper kernel on PyTorch's current stream. Validates
     device, dtype, shape and contiguity and raises ValueError on what the
     kernel does not take; raises RuntimeError if a launch fails. The output
-    and the per-split partials are allocated here; nothing synchronises.
-    A Python int `cur_pos` is copied to the device; a tensor is read there
-    ([] for the whole batch, [B] per row)."""
+    and the per-split partials (one scratch buffer) are allocated here, the
+    merge tickets once per device; nothing synchronises. A Python int
+    `cur_pos` is copied to the device; a tensor is read there ([] for the
+    whole batch, [B] per row). Rings whose rows are not a multiple of 16
+    bytes, or whose base is not 16-byte aligned, take the kernel's narrow
+    path."""
     dev = q.device
     if not isinstance(cur_pos, torch.Tensor):
         cur_pos = torch.tensor(int(cur_pos), dtype=torch.int32, device=dev)
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache, "pos": pos,
                "cur_pos": cur_pos}
     for name, t in tensors.items():
-        _check(t.device == dev and dev.type == "cuda",
-               f"{name} is on {t.device}, expected the CUDA device {dev}")
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-    _check(q.dtype in DTYPES and q.ndim == 3,
-           f"q must be float32 or bfloat16 [B, H, hd], got {q.dtype} "
-           f"{tuple(q.shape)}")
+        if not (t.device == dev and dev.type == "cuda"):
+            _fail(f"{name} is on {t.device}, expected the CUDA device {dev}")
+        if not t.is_contiguous():
+            _fail(f"{name} must be contiguous")
+    if not (q.dtype in DTYPES and q.ndim == 3):
+        _fail(f"q must be float32 or bfloat16 [B, H, hd], got {q.dtype} "
+              f"{tuple(q.shape)}")
     B, H, hd = q.shape
-    _check(k_cache.ndim == 4 and k_cache.shape[0] == B
-           and k_cache.shape[-1] == hd, f"rings must be [B={B}, W, KV, hd={hd}]")
-    for name in ("k_cache", "v_cache"):
-        _check(tensors[name].dtype == q.dtype
-               and tensors[name].shape == k_cache.shape,
-               f"{name} must match q's dtype and k_cache's shape")
+    if not (k_cache.ndim == 4 and k_cache.shape[0] == B
+            and k_cache.shape[-1] == hd):
+        _fail(f"rings must be [B={B}, W, KV, hd={hd}]")
+    for t in (k_cache, v_cache):
+        if not (t.dtype == q.dtype and t.shape == k_cache.shape):
+            _fail(f"{'k_cache' if t is k_cache else 'v_cache'} must match "
+                  f"q's dtype and k_cache's shape")
     _, W, KV, _ = k_cache.shape
-    _check(pos.dtype == torch.int32 and tuple(pos.shape) == (B, W),
-           f"pos must be int32 [B={B}, W={W}]")
-    _check(cur_pos.dtype == torch.int32 and (
-        cur_pos.ndim == 0 or tuple(cur_pos.shape) == (B,)),
-        f"cur_pos must be an int, or an int32 tensor [] or [B={B}]")
-    _check(KV >= 1 and H % KV == 0, f"H={H} is not a multiple of KV={KV}")
+    if not (pos.dtype == torch.int32 and tuple(pos.shape) == (B, W)):
+        _fail(f"pos must be int32 [B={B}, W={W}]")
+    if not (cur_pos.dtype == torch.int32 and (
+            cur_pos.ndim == 0 or tuple(cur_pos.shape) == (B,))):
+        _fail(f"cur_pos must be an int, or an int32 tensor [] or [B={B}]")
+    if not (KV >= 1 and H % KV == 0):
+        _fail(f"H={H} is not a multiple of KV={KV}")
     G = H // KV
-    _check(hd <= MAX_HEAD_DIM, f"head_dim {hd} > {MAX_HEAD_DIM}")
-    _check(G <= 8 and (G <= 4 or hd <= 128),
-           f"{G} query heads per KV head at head_dim {hd}: the kernel takes "
-           f"G <= 4, or G <= 8 with head_dim <= 128")
+    if hd > MAX_HEAD_DIM:
+        _fail(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if not (G <= 8 and (G <= 4 or hd <= 128)):
+        _fail(f"{G} query heads per KV head at head_dim {hd}: the kernel "
+              f"takes G <= 4, or G <= 8 with head_dim <= 128")
     out = torch.empty_like(q)
-    if B == 0 or H == 0:
-        return out
-    splits = n_splits(B, KV, W, _sm_count(dev.index if dev.index is not None
-                                          else torch.cuda.current_device()))
-    part_ml = torch.empty((2, B, H, splits), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, H, splits, hd), dtype=torch.float32, device=dev)
+    if B == 0 or H == 0 or W == 0:
+        return out.zero_()
+    p = _plan_for(q, k_cache, v_cache)
+    scratch = torch.empty(B * H * p.splits * (2 + hd), dtype=torch.float32,
+                          device=dev)
     launch = _bind(load_library("swa_decode"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                     pos.data_ptr(), cur_pos.data_ptr(), part_ml.data_ptr(),
-                     part_acc.data_ptr(), out.data_ptr(),
-                     int(cur_pos.ndim == 1), B, W, KV, G, hd, int(window),
-                     splits, DTYPES[q.dtype], float(hd ** -0.5), stream)
+                     pos.data_ptr(), cur_pos.data_ptr(), scratch.data_ptr(),
+                     out.data_ptr(), _merge_tickets(B * KV, dev).data_ptr(),
+                     int(cur_pos.ndim == 1), B, W, KV, G, hd,
+                     int(window), p.splits, p.chunk, p.tile, int(p.narrow),
+                     DTYPES[q.dtype], float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"swa_decode_attention kernel launch failed with "
                            f"CUDA error {err}")

@@ -163,7 +163,9 @@ def apply_activation(x: torch.Tensor, name: str) -> torch.Tensor:
     if name == "relu":
         return torch.relu(x)
     if name == "silu":
-        return F.silu(x)
+        # the reference's x * logistic(x), logistic as 1 / (1 + exp(-x)),
+        # each op rounded to x's dtype (F.silu rounds bf16 once)
+        return x * (1 / (1 + torch.exp(-x)))
     if name == "gelu":
         return F.gelu(x, approximate="tanh")
     if name == "relu2":

@@ -4,7 +4,9 @@ against the reference.
 The reference's params, predictors (`ffn_pred`) included, are converted
 into the port. `sparse_ffn_decode` must select the reference's segments and
 give its output within 2e-4, for relu (reduced opt-350m) and gated silu
-(reduced qwen2-7b); at `sparse_frac=1.0` it must equal the dense FFN, alone
+(reduced qwen2-7b), and in bfloat16 (bf16 params and inputs) the same
+segment sets and the output within the bf16 tolerance of
+tests/test_kernels.py:10, 2e-2; at `sparse_frac=1.0` it must equal the dense FFN, alone
 and in a whole decode step (the exactness tests of
 `tests/test_perf_variants.py:33-71`). A `serve_sparse` resident server must
 emit the reference server's greedy tokens with every decode FFN through
@@ -67,6 +69,19 @@ def qwen_pair():
     return _pair("qwen2-7b", seed=1)
 
 
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
+def opt_pair_bf16():
+    return _pair("opt-350m", **BF16)
+
+
+@pytest.fixture(scope="module")
+def qwen_pair_bf16():
+    return _pair("qwen2-7b", seed=1, **BF16)
+
+
 def _t(tree):
     if isinstance(tree, dict):
         return {k: _t(v) for k, v in tree.items()}
@@ -83,35 +98,45 @@ def _reference_segments(pred, x, cfg):
     return np.asarray(ids)
 
 
-@pytest.mark.parametrize("arch", ["opt-350m", "qwen2-7b"])
-def test_sparse_ffn_decode_matches_reference(arch, opt_pair, qwen_pair):
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("opt-350m", "float32", id="opt-350m"),
+    pytest.param("qwen2-7b", "float32", id="qwen2-7b"),
+    pytest.param("opt-350m", "bfloat16", id="opt-350m-bf16"),
+    pytest.param("qwen2-7b", "bfloat16", id="qwen2-7b-bf16")])
+def test_sparse_ffn_decode_matches_reference(arch, dtype, request):
     """Every layer's converted `ffn` and `ffn_pred`: the same segment set
-    and the same output, within 2e-4, through the dispatcher."""
-    jmodel, jparams, model, params = (qwen_pair if arch == "qwen2-7b"
-                                      else opt_pair)
+    and the same output, within 2e-4 (bf16: 2e-2), through the
+    dispatcher."""
+    name = {"opt-350m": "opt_pair", "qwen2-7b": "qwen_pair"}[arch]
+    jmodel, jparams, model, params = request.getfixturevalue(
+        name if dtype == "float32" else f"{name}_bf16")
     cfg, jcfg = model.cfg, jmodel.cfg
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = 2e-4 if dtype == "float32" else 2e-2
     rng = np.random.default_rng(2)
     for g, group in enumerate(params["stack"]):
         sub = group["sub_0"]
         assert set(sub) >= {"ffn", "ffn_pred"}
         jsub = jax.tree_util.tree_map(lambda a: a[g], jparams["stack"]["sub_0"])
-        np.testing.assert_array_equal(sub["ffn_pred"]["w2"].numpy(),
-                                      np.asarray(jsub["ffn_pred"]["w2"]))
+        assert sub["ffn_pred"]["w2"].dtype == tdt
+        np.testing.assert_array_equal(
+            sub["ffn_pred"]["w2"].float().numpy(),
+            np.asarray(jsub["ffn_pred"]["w2"], np.float32))
         x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
-        want_ids = _reference_segments(jsub["ffn_pred"], jnp.asarray(x), jcfg)
-        got_ids = predict_segments(sub["ffn_pred"], torch.from_numpy(x), cfg)
+        xj, xt = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+        want_ids = _reference_segments(jsub["ffn_pred"], xj, jcfg)
+        got_ids = predict_segments(sub["ffn_pred"], xt, cfg)
         assert len(want_ids) == 3
         assert set(got_ids.tolist()) == set(want_ids.tolist())
         ops.reset_counts()
-        got = sparse_ffn_decode(sub["ffn"], sub["ffn_pred"],
-                                torch.from_numpy(x), cfg)
+        got = sparse_ffn_decode(sub["ffn"], sub["ffn_pred"], xt, cfg)
         c = ops.counts["sparse_ffn_segments"]
         assert (c.launches, c.plain_calls) == (0, 1)
-        want = jsparse_ffn_decode(jsub["ffn"], jsub["ffn_pred"],
-                                  jnp.asarray(x), jcfg)
-        assert got.shape == x.shape and got.dtype == torch.float32
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
-                                   atol=2e-4)
+        want = jsparse_ffn_decode(jsub["ffn"], jsub["ffn_pred"], xj, jcfg)
+        assert got.shape == x.shape and got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
 
 
 def test_sparse_ffn_decode_full_fraction_is_dense():

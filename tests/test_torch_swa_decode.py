@@ -6,8 +6,12 @@ package's Pallas kernel in interpret mode (`ops.swa_decode_attention`, run
 as `tests/test_kernels.py` runs it) and its oracle `ref.swa_decode_ref`, on
 the same numpy inputs: the shape sweep of the reference's kernel tests in
 float32 and bfloat16 with their tolerances, an empty ring, and the port's
-per-row `cur_pos` against one reference call per row.
+per-row `cur_pos` against one reference call per row. Also the Hopper
+wrapper's launch `plan` (pure Python, no card): tile, split count and load
+width for every geometry the kernel takes.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +20,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.swa_decode import swa_decode_attention_plain
+from repro_torch.kernels import swa_decode
+from repro_torch.kernels.swa_decode import plan, swa_decode_attention_plain
 
 torch.set_num_threads(1)
 
@@ -144,3 +149,45 @@ def test_per_row_cur_matches_reference_per_row(window):
                         window, jnp.float32)
         np.testing.assert_allclose(got[b:b + 1], np.asarray(want),
                                    rtol=2e-4, atol=2e-4)
+
+
+# every geometry the kernel takes: hd <= 256, and G <= 4, or G <= 8 with
+# hd <= 128, in float32 and bfloat16
+TAKEN = [(G, hd) for G in range(1, 9) for hd in (1, 8, 16, 36, 64, 96, 128,
+                                                  200, 256)
+         if G <= 4 or hd <= 128]
+
+
+@pytest.mark.parametrize("elt", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned",
+                                                        "misaligned"])
+def test_plan_takes_every_geometry(elt, aligned):
+    """The plan for every geometry the kernel takes, over batch sizes,
+    KV heads, ring lengths and SM counts: a tile of whole passes, splits of
+    whole tiles of at most MAX_CHUNK slots that cover the ring with no split
+    left without slots, and the narrow path exactly where a row is not a
+    multiple of 16 bytes or a base is misaligned."""
+    for (G, hd), B, KV, W, sms in itertools.product(
+            TAKEN, (1, 4, 32), (1, 8), (1, 31, 96, 1000, 8190, 8192, 131072),
+            (1, 132)):
+        p = plan(B, KV, G, hd, W, elt, sms, aligned=aligned)
+        assert p.narrow == (not aligned or (hd * elt) % 16 != 0)
+        assert p.tile in (32, 64, 128, 256)
+        assert p.tile % (swa_decode.THREADS // 32) == 0
+        assert p.chunk % p.tile == 0 and 0 < p.chunk <= swa_decode.MAX_CHUNK
+        assert p.splits >= 1
+        assert (p.splits - 1) * p.chunk < W <= p.splits * p.chunk, (p, W)
+
+
+def test_plan_tiles_and_splits_at_the_serving_shapes():
+    """The tiles the kernel's geometry gives (16 KB of K per tile on the
+    16-byte path), and enough splits for four blocks an SM on 132 SMs."""
+    # opt-350m heads f32 (256-byte rows), mistral-7b f32 and bf16, qwen2-7b
+    assert plan(4, 16, 1, 64, 8192, 4, 132) == (False, 64, 960, 9)
+    assert plan(4, 8, 4, 128, 8192, 4, 132) == (False, 32, 512, 16)
+    assert plan(4, 8, 4, 128, 8192, 2, 132) == (False, 64, 512, 16)
+    assert plan(4, 4, 7, 128, 8192, 2, 132) == (False, 64, 256, 32)
+    # hd 36 in bf16 (72-byte rows): the narrow path, one element a lane
+    assert plan(4, 8, 4, 36, 8192, 2, 132).narrow
+    # a short ring is one split
+    assert plan(1, 1, 4, 64, 96, 4, 132).splits == 1

@@ -4,12 +4,23 @@ Reduced qwen2-7b (GQA, gated silu) and opt-350m (relu), 2 layers, d_model
 64, a window of 8 slots, the reference's weights converted into the port.
 Prefill and decode logits and the ring's k / v / pos after every step must
 match `model.init_cache(swa=True)` of the reference, for prompts shorter
-and longer than the window and decode past the wrap. The port's
+and longer than the window and decode past the wrap; in float32, and in
+bfloat16 (bf16 params, compute and rings) to the bf16 tolerance of
+tests/test_kernels.py:10, 2e-2, with the reference run op by op
+(`jax.disable_jit()`, as in tests/test_torch_model.py: compiled, XLA skips
+some of the bf16 roundings the code writes). In bf16 the two decode paths
+differ by design: the port attends over the ring with the function of the
+reference's `swa_decode_kernel` (float32 scores), the reference's model
+with `gqa_attend` in the model dtype (bf16 scores and probabilities), so
+after the first decode step (its attention feeds the next layer's k / v)
+bf16 logits and rings are held to 2e-2 of their scale (max |x|), prefill
+logits and rings element by element. The port's
 `InferenceServer(swa=True)` (resident and offload) and `ServingEngine(swa=
 True)` must emit the reference's greedy tokens and per-uid flash I/O
 seconds, with five requests on four slots (the last admitted into a reused
 slot). Every decode attention goes through `ops.swa_decode_attention`.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -64,52 +75,81 @@ def qwen_pair():
     return _pair("qwen2-7b", seed=1)
 
 
-def _assert_rings(cache, jcache):
-    """Every layer's ring equals the reference's: k / v to float32
-    rounding, pos exactly."""
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
+def opt_pair_bf16():
+    return _pair("opt-350m", **BF16)
+
+
+@pytest.fixture(scope="module")
+def qwen_pair_bf16():
+    return _pair("qwen2-7b", seed=1, **BF16)
+
+
+def _assert_rings(cache, jcache, tol=1e-5, of_scale=False):
+    """Every layer's ring equals the reference's: k / v to `tol` (float32
+    rounding by default; `of_scale`: atol `tol` times the ring's max |x|),
+    pos exactly."""
     for g, group in enumerate(cache):
         ring, jring = group["sub_0"], jcache["sub_0"]
         assert isinstance(ring, SWACache)
         np.testing.assert_array_equal(ring.pos.numpy(),
                                       np.asarray(jring.pos)[g])
         for name in ("k", "v"):
-            np.testing.assert_allclose(getattr(ring, name).numpy(),
-                                       np.asarray(getattr(jring, name))[g],
-                                       rtol=1e-5, atol=1e-5)
+            got, want = getattr(ring, name), getattr(jring, name)
+            assert got.dtype == getattr(torch, str(want.dtype))
+            want = np.asarray(want, np.float32)[g]
+            scale = float(np.abs(want).max()) if of_scale else 1.0
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                       atol=tol * scale)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "opt-350m"])
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param("qwen2-7b", "float32", id="qwen2-7b"),
+    pytest.param("opt-350m", "float32", id="opt-350m"),
+    pytest.param("qwen2-7b", "bfloat16", id="qwen2-7b-bf16"),
+    pytest.param("opt-350m", "bfloat16", id="opt-350m-bf16")])
 @pytest.mark.parametrize("T", [5, 13], ids=["short", "wrapped"])
-def test_prefill_decode_and_rings_match_reference(arch, T, opt_pair,
-                                                  qwen_pair):
+def test_prefill_decode_and_rings_match_reference(arch, dtype, T, request):
     """Prefill (full causal over the prompt, the ring keeps its last W
     positions) and 12 decode steps with per-row positions, past the wrap:
     logits and rings after every step."""
-    jmodel, jparams, model, params = (qwen_pair if arch == "qwen2-7b"
-                                      else opt_pair)
+    name = {"opt-350m": "opt_pair", "qwen2-7b": "qwen_pair"}[arch]
+    jmodel, jparams, model, params = request.getfixturevalue(
+        name if dtype == "float32" else f"{name}_bf16")
+    bf16 = dtype == "bfloat16"
+    logit_tol, ring_tol = (2e-2, 2e-2) if bf16 else (1e-4, 1e-5)
+    reference = jax.disable_jit if bf16 else contextlib.nullcontext
     rng = np.random.default_rng(T)
     prompt = rng.integers(0, SMALL["vocab_size"], (2, T)).astype(np.int32)
     jcache = jmodel.init_cache(2, MAX_LEN, swa=True)
     cache = model.init_cache(2, MAX_LEN, swa=True)
-    jlog, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt)},
-                                  jcache)
+    with reference():
+        jlog, jcache = jmodel.prefill(jparams,
+                                      {"tokens": jnp.asarray(prompt)}, jcache)
     log, cache = model.prefill(params, {"tokens": torch.as_tensor(
         prompt, dtype=torch.int64)}, cache)
-    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=1e-4,
-                               atol=1e-4)
-    _assert_rings(cache, jcache)
+    np.testing.assert_allclose(log.float().numpy(),
+                               np.asarray(jlog, np.float32), rtol=logit_tol,
+                               atol=logit_tol)
+    _assert_rings(cache, jcache, ring_tol)
     ops.reset_counts()
     for i in range(12):
         tok = np.asarray(jnp.argmax(jlog[:, -1], axis=-1)).astype(np.int32)
         pos = np.full((2,), T + i, np.int32)
-        jlog, jcache = jmodel.decode_step(jparams, jnp.asarray(tok[:, None]),
-                                          jnp.asarray(pos), jcache)
+        with reference():
+            jlog, jcache = jmodel.decode_step(
+                jparams, jnp.asarray(tok[:, None]), jnp.asarray(pos), jcache)
         log, cache = model.decode_step(
             params, torch.as_tensor(tok[:, None], dtype=torch.int64),
             torch.as_tensor(pos), cache)
-        np.testing.assert_allclose(log.numpy(), np.asarray(jlog), rtol=1e-4,
-                                   atol=1e-4)
-        _assert_rings(cache, jcache)
+        want = np.asarray(jlog, np.float32)
+        scale = float(np.abs(want).max()) if bf16 else 1.0
+        np.testing.assert_allclose(log.float().numpy(), want, rtol=logit_tol,
+                                   atol=logit_tol * scale)
+        _assert_rings(cache, jcache, ring_tol, of_scale=bf16)
     assert int(cache[0]["sub_0"].pos.max()) == T + 11 >= SMALL["sliding_window"]
     c = ops.counts["swa_decode"]
     assert (c.launches, c.plain_calls) == (0, 12 * SMALL["n_layers"])
