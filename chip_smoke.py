@@ -27,14 +27,19 @@ Phases, in order (any failure raises and the script exits non-zero):
      idle share per step, the FFN kernel's device time, the top device
      kernels, and the offload engine's host spans (probe / read / admit).
   6. paged kernel: the paged-decode attention kernel against its plain
-     version (rtol = atol = 1e-5 in float32) at opt-350m's head geometry
+     version (rtol = atol = 1e-5 in float32 and int8, 2e-2 on bf16
+     arenas, the same bits over two launches; bf16 arenas also at 1e-5
+     against the plain version's float32 math on the same bf16 values, the
+     TPU kernel's arithmetic) at opt-350m's head geometry
      (16 x 64) at the serving shape (B=4, page 16, rows at 9..55) and at
-     long context (4096 positions, 256 pages a row), and at
-     mistral-7b-relu's (32 query / 8 KV heads x 128) at long context,
-     float32 and int8, with rows at different positions and a row whose
-     table is all null page; max error, event ms, profiler device ms cold
-     and warm, plain ms, the byte bound, and SDPA's time on the equivalent
-     contiguous K/V as a yardstick (no PyTorch call reads a page table).
+     long context (4096 positions, 256 pages a row), at mistral-7b-relu's
+     (32 query / 8 KV heads x 128) at long context and mixed rows, and at
+     qwen2-7b's (28 / 4 x 128, G = 7) in bf16, float32, bf16 and int8
+     arenas, with rows at different positions and a row whose table is all
+     null page; max error, the launch plan and blocks per SM, event ms,
+     profiler device ms cold (the L2 flushed by writing) and warm, plain
+     ms, the byte bound, and SDPA's time on the equivalent contiguous K/V
+     as a yardstick (no PyTorch call reads a page table).
   7. paged: the slice's opt-350m and offload runtime served paged
      (page_size 16, 16 pages, 4 slots, four 40-token prompts: a random one,
      the same again (a live fork of its partial page), its first 32 tokens +
@@ -44,7 +49,13 @@ Phases, in order (any failure raises and the script exits non-zero):
      paged tokens equal contiguous tokens (margin rule as in 4), the paged
      kernel launched decode_steps x 24 times and its plain version never
      ran, prefix_hits >= 1, cow_copies >= 1, preemptions == 0, and after
-     `clear_prefix_cache()` the pool checks and is wholly free.
+     `clear_prefix_cache()` the pool checks and is wholly free. Then the
+     model cast to bf16 (a bf16 arena) served paged, resident: two
+     4000-token prompts and two of 32 on one pool (page 16, room for all
+     four), 16 new tokens: paged launches = decode steps x 24, no plain
+     call, no preemption, the kernel against its plain version on layer 0's
+     live arena at uid 0's last token (2e-2, and 1e-5 against float32
+     math on the same bf16 values), and its breakdown.
   8. coact kernel: the co-activation kernel (MᵀM of a [T, N] 0/1 mask)
      against its plain version at (T, N) = (512, 4096), the offline stage's
      shape for opt-350m, (1000, 4100), ragged, and (4096, 14336),
@@ -139,10 +150,13 @@ TOL = 1e-4                     # fp32; the kernel sums in another order
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sparse_ffn_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/sparse_ffn.py:165"
 FFN_KERNELS = ("up_act_kernel", "down_kernel", "sum_segments_kernel")
-PAGED_TOL = 1e-5               # fp32; online softmax, rows in another order
+PAGED_TOL = {"float32": 1e-5, "int8": 1e-5,   # online softmax, rows in
+             "bfloat16": 2e-2}                 # another order; bf16: the
+                                  # plain version rounds scores and P to bf16
+PAGED_F32_MATH_TOL = 1e-5   # bf16 arenas vs float32 math on the same values
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_decode.cu"
 PAGED_REPLACES = "src/repro/kernels/swa_decode.py:211"
-PAGED_KERNELS = ("paged_decode_kernel",)
+PAGED_KERNELS = ("paged_split_kernel",)
 INT8_OPS = 1979e12             # H100 SXM data sheet, int8 tensor cores, dense
 COACT_SOURCE = "src/repro_torch/kernels/csrc/coact.cu"
 COACT_REPLACES = "src/repro/kernels/coact.py:39"
@@ -153,6 +167,8 @@ SWA_KERNELS = ("swa_split_kernel",)
 SEG_SOURCE = "src/repro_torch/kernels/csrc/sparse_ffn_segments.cu"
 SEG_REPLACES = "src/repro/kernels/sparse_ffn.py:203"
 ITERS = 30                     # timed launches per kernel measurement
+PROFILE_WINDOWS = 3            # profiler windows tried for a whole record
+PROFILE_EDGE_S = 0.05          # idle seconds on each side of a window's edges
 # the card run's traffic: 4 requests, 32-token prompts, 16 new tokens
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 32, 16
 
@@ -201,28 +217,52 @@ def time_ms(fn, flush, iters: int = ITERS, warmup: int = 5):
 def kernel_device_ms(fn, flush, cold: bool, names=FFN_KERNELS,
                      iters: int = ITERS):
     """Mean device ms per call of the kernels whose names contain one of
-    `names` (the fused FFN's three by default), read from `torch.profiler`
-    (CUDA activity): the kernels' own time, without the host's enqueue or
-    the gaps between launches. `cold` flushes the L2 before each call as
-    `time_ms` does; warm leaves the inputs in L2 from the call before. None
-    on the CPU or when the profiler saw no kernel."""
+    `names` (the fused FFN's three by default; each launched once a call),
+    read from `torch.profiler` (CUDA activity): the kernels' own time,
+    without the host's enqueue or the gaps between launches. `cold` flushes
+    the L2 before each call as `time_ms` does; warm leaves the inputs in L2
+    from the call before. A warm-up step of 3 calls comes first and is not
+    counted. Once the card has served, the profiler's window edges move
+    against the kernels' timestamps, so launches next to an edge were
+    dropped (27 of 30 recorded) or warm-up launches counted: each edge
+    has PROFILE_EDGE_S of idle time on both sides. A window in which a named
+    kernel shows other than `iters` launches is measured again, up to
+    PROFILE_WINDOWS windows; if none is whole, the last one's mean per
+    recorded launch is returned and a `profiler_lossy` line says so, and
+    fewer than half the launches recorded raises. None on the CPU."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     if flush.device.type != "cuda":
         return None
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and any(n in e.key for n in names))
-    return total / 1e3 / iters if total > 0 else None
+    for _ in range(PROFILE_WINDOWS):
+        seen = []
+
+        def ready(prof, seen=seen):
+            seen.extend(e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and any(n in e.key for n in names))
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for n_calls in (3, iters):      # the warm-up step, the window
+                time.sleep(PROFILE_EDGE_S)
+                for _ in range(n_calls):
+                    if cold:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_EDGE_S)
+                prof.step()
+        if seen and all(e.count == iters for e in seen):
+            return sum(e.self_device_time_total for e in seen) / 1e3 / iters
+    recorded = [e.count for e in seen]
+    if not seen or min(recorded) < iters // 2:
+        raise RuntimeError(f"the profiler recorded {recorded} launches of "
+                           f"{names}, not {iters} each")
+    emit({"profiler_lossy": {"kernels": list(names), "recorded": recorded,
+                             "iters": iters, "windows": PROFILE_WINDOWS}})
+    return sum(e.self_device_time_total / e.count for e in seen) / 1e3
 
 
 # -- kernel phase --------------------------------------------------------------
@@ -563,25 +603,30 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
 NULL = -1          # a `cur` entry's marker for a row whose table is all null page
 PAGED_CASES = [
     # name, KV, G, hd, page size, per-row current positions (a row at
-    # (NULL, c) has an all-null table and reads c + 1 null-page rows), int8
-    ("opt350m_serve_f32", 16, 1, 64, 16, [54, 40, 9, (NULL, 17)], False),
-    ("opt350m_serve_int8", 16, 1, 64, 16, [54, 40, 9, (NULL, 17)], True),
-    ("opt350m_long_f32", 16, 1, 64, 16, [4095] * 4, False),
-    ("opt350m_long_int8", 16, 1, 64, 16, [4095] * 4, True),
-    ("mistral7b_long_f32", 8, 4, 128, 16, [4095] * 4, False),
-    ("mistral7b_long_int8", 8, 4, 128, 16, [4095] * 4, True),
-    ("mistral7b_mixed_f32", 8, 4, 128, 16, [4095, 1500, 7, (NULL, 300)], False),
-    ("mistral7b_mixed_int8", 8, 4, 128, 16, [4095, 1500, 7, (NULL, 300)], True),
+    # (NULL, c) has an all-null table and reads c + 1 null-page rows), arena
+    ("opt350m_serve_f32", 16, 1, 64, 16, [54, 40, 9, (NULL, 17)], "float32"),
+    ("opt350m_serve_int8", 16, 1, 64, 16, [54, 40, 9, (NULL, 17)], "int8"),
+    ("opt350m_long_f32", 16, 1, 64, 16, [4095] * 4, "float32"),
+    ("opt350m_long_int8", 16, 1, 64, 16, [4095] * 4, "int8"),
+    ("opt350m_long_bf16", 16, 1, 64, 16, [4095] * 4, "bfloat16"),
+    ("mistral7b_long_f32", 8, 4, 128, 16, [4095] * 4, "float32"),
+    ("mistral7b_long_int8", 8, 4, 128, 16, [4095] * 4, "int8"),
+    ("mistral7b_long_bf16", 8, 4, 128, 16, [4095] * 4, "bfloat16"),
+    ("qwen2_7b_long_bf16", 4, 7, 128, 16, [4095] * 4, "bfloat16"),
+    ("mistral7b_mixed_f32", 8, 4, 128, 16, [4095, 1500, 7, (NULL, 300)],
+     "float32"),
+    ("mistral7b_mixed_int8", 8, 4, 128, 16, [4095, 1500, 7, (NULL, 300)],
+     "int8"),
 ]
 REHEARSAL_LONG = 128    # the CPU rehearsal cuts 4096-position rows to this
 
 
-def paged_inputs(gen, KV, G, hd, page, rows, int8):
+def paged_inputs(gen, KV, G, hd, page, rows, arena):
     """A shuffled page arena on the card for rows at `rows` (see
     PAGED_CASES): row b owns pages for slots 0..cur[b] at random physical
     pages, the rest of its table points at the null page (random contents
     too), as do the two spare pages. int8 arenas get bf16 scales around
-    1/127."""
+    1/127; the query is float32 in every case."""
     import torch
     dev = gen.device
     cur = [r[1] if isinstance(r, tuple) else r for r in rows]
@@ -596,14 +641,14 @@ def paged_inputs(gen, KV, G, hd, page, rows, int8):
         table[b, :n] = perm[i:i + n]
         i += n
     shape = (n_pages + 1, page, KV, hd)
-    if int8:
+    if arena == "int8":
         k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
                               dtype=torch.int8) for _ in range(2))
         ks, vs = ((torch.rand(shape[:3], generator=gen, device=dev) + 0.5)
                   .div(127).to(torch.bfloat16) for _ in range(2))
     else:
         k, v = (torch.randn(shape, generator=gen, device=dev)
-                for _ in range(2))
+                .to(getattr(torch, arena)) for _ in range(2))
         ks = vs = None
     q = torch.randn((len(rows), KV * G, hd), generator=gen, device=dev)
     cur_t = torch.tensor(cur, dtype=torch.int32, device=dev)
@@ -631,9 +676,9 @@ def paged_bound(q, k, table, cur, page):
 
 def sdpa_yardstick(q, k, v, table, cur, ks, vs, flush):
     """ms of one `scaled_dot_product_attention` call on the same rows laid
-    out contiguously ([B, KV, S, hd] float32, dequantised, GQA), masked
-    causally where rows stop short of S. A yardstick for later PRs only:
-    the port never calls it."""
+    out contiguously ([B, KV, S, hd] in the arena's float dtype, int8
+    dequantised to float32, GQA), masked causally where rows stop short of
+    S. A yardstick for later PRs only: the port never calls it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.models.kvcache import gather_pages
@@ -645,7 +690,7 @@ def sdpa_yardstick(q, k, v, table, cur, ks, vs, flush):
     S = kc.shape[1]
     kc = kc.permute(0, 2, 1, 3).contiguous()
     vc = vc.permute(0, 2, 1, 3).contiguous()
-    q4 = q[:, :, None]
+    q4 = q[:, :, None].to(kc.dtype)
     mask = None
     if int(cur.min()) + 1 < S:
         mask = (torch.arange(S, device=q.device)[None]
@@ -654,19 +699,40 @@ def sdpa_yardstick(q, k, v, table, cur, ks, vs, flush):
         q4, kc, vc, attn_mask=mask, enable_gqa=True), flush)
 
 
+def f32_math_check(out, q, k, v, table, cur):
+    """(max abs error, within PAGED_F32_MATH_TOL) of a bf16 arena's kernel
+    output `out` (on the card) against the plain version on the same bf16 values in
+    float32 (q rounded to bf16 as the kernel rounds it): the TPU kernel's
+    `_paged_core` arithmetic, f32 scores and P."""
+    import torch
+    from repro_torch.kernels.paged_decode import paged_decode_attention_plain
+    ref = paged_decode_attention_plain(q.bfloat16().float(), k.float(),
+                                       v.float(), table, cur)
+    return (float((out - ref).abs().max()),
+            bool(torch.allclose(out, ref, rtol=PAGED_F32_MATH_TOL,
+                                atol=PAGED_F32_MATH_TOL)))
+
+
 def paged_kernel_phase(dev, seed: int, reduced: bool) -> dict:
+    """Every PAGED_CASES case through the dispatcher against the plain
+    version, at its tolerance and bit for bit over two launches; a bf16
+    arena also against the plain version's float32 math on the same bf16
+    values (PAGED_F32_MATH_TOL). On the card also the launch plan, blocks
+    per SM and the times."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels.paged_decode import paged_decode_attention_plain
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    cuda = dev.type == "cuda"
     cases = []
-    for name, KV, G, hd, page, rows, int8 in PAGED_CASES:
+    for name, KV, G, hd, page, rows, arena in PAGED_CASES:
         if reduced:
             rows = [min(r, REHEARSAL_LONG - 1) if isinstance(r, int)
                     else (NULL, min(r[1], REHEARSAL_LONG - 1)) for r in rows]
         q, k, v, table, cur, ks, vs = paged_inputs(gen, KV, G, hd, page,
-                                                   rows, int8)
+                                                   rows, arena)
         args = (q, k, v, table, cur, ks, vs)
         out = ops.paged_decode_attention(*args)
         ref = paged_decode_attention_plain(*args)
@@ -674,8 +740,12 @@ def paged_kernel_phase(dev, seed: int, reduced: bool) -> dict:
         assert out.shape == ref.shape == q.shape, name
         assert bool(torch.isfinite(out).all()), f"{name}: non-finite"
         err = float((out - ref).abs().max())
-        ok = bool(torch.allclose(out, ref, rtol=PAGED_TOL, atol=PAGED_TOL))
+        tol = PAGED_TOL[arena]
+        ok = bool(torch.allclose(out, ref, rtol=tol, atol=tol))
         same = bool(torch.equal(out, ops.paged_decode_attention(*args)))
+        f32_err = f32_ok = None
+        if arena == "bfloat16" and cuda:   # on the CPU `out` is the plain
+            f32_err, f32_ok = f32_math_check(out, *args[:5])    # version
 
         def kernel():
             return ops.paged_decode_attention(*args)
@@ -685,8 +755,11 @@ def paged_kernel_phase(dev, seed: int, reduced: bool) -> dict:
             case=name, B=q.shape[0], H=q.shape[1], KV=KV, hd=hd, page=page,
             cur=cur.tolist(), null_rows=[b for b, r in enumerate(rows)
                                          if isinstance(r, tuple)],
-            arena_dtype=str(k.dtype).replace("torch.", ""),
-            max_abs_err=err, allclose=ok, deterministic=same,
+            arena_dtype=arena, max_abs_err=err, tol=tol, allclose=ok,
+            deterministic=same, f32_math_max_abs_err=f32_err,
+            f32_math_tol=PAGED_F32_MATH_TOL if f32_err is not None else None,
+            plan=pd._plan_for(q, k, v, table)._asdict() if cuda else None,
+            blocks_per_sm=pd.blocks_per_sm(q, k, v, table) if cuda else None,
             ms=time_ms(kernel, flush),
             device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
                                             names=PAGED_KERNELS),
@@ -696,10 +769,13 @@ def paged_kernel_phase(dev, seed: int, reduced: bool) -> dict:
                              flush),
             bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
             sdpa_contiguous_ms=(sdpa_yardstick(*args, flush)
-                                if dev.type == "cuda" else None))
+                                if cuda else None))
         emit({"paged_kernel_case": case})
         assert ok, f"{name}: kernel disagrees with the plain version ({err})"
         assert same, f"{name}: two launches gave different bits"
+        assert f32_ok in (None, True), (
+            f"{name}: kernel disagrees with float32 math on its bf16 arena "
+            f"({f32_err})")
         cases.append(case)
     del flush
     return {"cases": cases}
@@ -803,7 +879,105 @@ def paged_phase(dev, seed: int, model, params, runtime, reduced: bool) -> dict:
                 f"paged {mode} {kv}", f"contiguous {mode} {kv}")
             emit({"paged": row})
             launches[f"{mode}_{kv}"] = taken
+    launches["resident_bf16_long"] = paged_long_run(dev, seed, model, params,
+                                                    reduced)
     return {"launches": launches}
+
+
+PAGED_LONG_LENS = (4000, 4000, 32, 32)   # long-context chat on one pool
+
+
+def paged_long_run(dev, seed: int, model, params, reduced: bool) -> int:
+    """The slice's model cast to bf16 (bf16 arena), served paged, resident:
+    two 4000-token prompts and two of 32 on one shared pool of page 16 with
+    room for all four, 16 new tokens each (the CPU rehearsal cuts the long
+    prompts to REHEARSAL_LONG). Counts set to 0 just before the run, read
+    just after: paged launches = decode steps x layers, no plain call. At
+    uid 0's last token layer 0's arena, page tables and positions are
+    copied, and after the run the kernel is held against its plain version
+    on that copy (2e-2), and against float32 math on the same bf16 values
+    (PAGED_F32_MATH_TOL). Then the breakdown of the same traffic."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode_attention_plain
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.server import InferenceServer
+
+    model16, params16 = bf16_model(model, params)
+    cfg = model16.cfg
+    lens = [min(n, REHEARSAL_LONG) if reduced else n for n in PAGED_LONG_LENS]
+    rng = np.random.default_rng(seed + 8)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=PAGED_NEW_TOKENS)
+            for i, n in enumerate(lens)]
+    max_len = max(lens) + PAGED_NEW_TOKENS
+    paging = dict(page_size=PAGE_SIZE, num_pages=sum(
+        -(-(n + PAGED_NEW_TOKENS) // PAGE_SIZE) for n in lens))
+    server = InferenceServer(model16, params16, max_slots=len(reqs),
+                             max_len=max_len, device=dev, **paging)
+    snap = {}
+
+    def on_token(uid, tok):
+        if len(server._handles[uid].tokens) == PAGED_NEW_TOKENS:
+            arena = server._pool.cache_groups[0]["sub_0"]
+            live = [h is not None for h in server._slot_handle]
+            snap.update(k=arena.k.clone(), v=arena.v.clone(),
+                        table=torch.as_tensor(server._page_tables_np(),
+                                              device=dev),
+                        cur=torch.as_tensor(
+                            np.where(live, server._slot_pos - 1, 0)
+                            .astype(np.int32), device=dev))
+
+    handles = [server.submit(r, on_token=on_token if r.uid == 0 else None)
+               for r in reqs]
+    ops.reset_counts()
+    server.drain()
+    sync(dev)
+    pc = ops.counts["paged_decode"]
+    st = server.stats
+    row = {"mode": "resident_bf16_long",
+           "kv": str(snap["k"].dtype).replace("torch.", ""),
+           "prompt_lens": lens, "page_size": PAGE_SIZE,
+           "num_pages": paging["num_pages"],
+           "decode_steps": st.decode_steps,
+           "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+           "decode_tokens_per_s": (st.tokens_emitted - st.admitted)
+           / st.decode_seconds,
+           "prefill_s_total": st.prefill_seconds,
+           "paged_launches": pc.launches, "paged_plain_calls": pc.plain_calls,
+           "preemptions": st.preemptions}
+    for h in handles:
+        assert h.result.finish_reason == "length", (h.uid, h.result)
+        assert len(h.result.tokens) == PAGED_NEW_TOKENS
+    taken, other = ((pc.launches, pc.plain_calls) if dev.type == "cuda"
+                    else (pc.plain_calls, pc.launches))
+    assert other == 0, row
+    assert taken == st.decode_steps * cfg.n_layers > 0, row
+    assert st.preemptions == 0, row
+    # the last step: the live arena, the kernel vs its plain version
+    q = torch.randn((len(reqs), cfg.n_heads, cfg.head_dim),
+                    generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    args = (q, snap["k"], snap["v"], snap["table"], snap["cur"])
+    out = ops.paged_decode_attention(*args)
+    ref = paged_decode_attention_plain(*args)
+    tol = PAGED_TOL["bfloat16"]
+    f32_err, f32_ok = (f32_math_check(out, *args) if dev.type == "cuda"
+                       else (None, True))      # on the CPU out is the plain
+    row.update(last_step_cur=snap["cur"].tolist(),
+               last_step_max_abs_err=float((out - ref).abs().max()),
+               last_step_f32_math_max_abs_err=f32_err)
+    assert snap["k"].dtype == torch.bfloat16, row
+    assert torch.allclose(out, ref, rtol=tol, atol=tol), row
+    assert f32_ok, row
+    assert int(snap["cur"].max()) >= max(lens), row
+    del snap, args, out, ref
+    emit({"paged": row})
+    breakdown_phase(dev, model16, params16, None, reqs, max_len,
+                    {"resident": row["decode_ms_per_step"]},
+                    path="paged_bf16_long", kernels=PAGED_KERNELS, **paging)
+    return taken
 
 
 # -- coact kernel phase ------------------------------------------------------------
@@ -1771,6 +1945,8 @@ def main(argv=None) -> int:
         return 3
     main_case = kern["cases"][0]
     paged_case = pkern["cases"][0]
+    paged_bf16 = next(c for c in pkern["cases"]
+                      if c["case"] == "mistral7b_long_bf16")
     coact_case = ckern["cases"][0]
     swa_case = skern["cases"][0]
     swa_bf16 = next(c for c in skern["cases"] if c["case"] == "mistral7b_bf16")
@@ -1797,7 +1973,11 @@ def main(argv=None) -> int:
         "device_warm_ms": paged_case["device_warm_ms"],
         "plain_ms": paged_case["plain_ms"],
         "bound_ms": paged_case["bound_ms"],
-        "bound_by": paged_case["bound_by"], "library_ms": None}, {
+        "bound_by": paged_case["bound_by"], "library_ms": None,
+        # mistral-7b heads at 4096 positions on a bf16 arena beside it
+        "mistral7b_long_bf16": {k: paged_bf16[k] for k in (
+            "ms", "device_cold_ms", "device_warm_ms", "plain_ms", "bound_ms",
+            "bound_by", "sdpa_contiguous_ms")}}, {
         # the offline stage's shape (T = 512, N = 4096); every case above
         "name": "coact_accumulate", "route": "cuda",
         "source": COACT_SOURCE, "replaces": COACT_REPLACES,

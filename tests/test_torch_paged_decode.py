@@ -8,7 +8,10 @@ Tolerances: the plain version against the Pallas body at atol = rtol =
 2e-6, the reference's own bound for that pair (online softmax against one
 softmax); against the XLA twin and against the port's own contiguous cache
 at 1e-6 and bitwise respectively — the same einsum math in the same order.
-int8 quantisation matches the reference bit for bit.
+int8 quantisation matches the reference bit for bit. On bf16 arenas the
+plain version equals the XLA twin bit for bit and the Pallas body within
+2e-2 (the body keeps its scores and P in float32, the twin rounds them to
+bf16).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -186,3 +189,36 @@ def test_paged_writes_land_on_their_page_and_offset():
     kq, ks = kvcache._quantize(k[:, 0])
     assert torch.equal(qcache.k[1, 1], kq[0])
     assert torch.equal(qcache.k_scale[1, 1], ks[0].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("null_rows", [(), (1,)], ids=["live", "null_row"])
+def test_plain_matches_reference_on_bf16_arenas(G, null_rows):
+    """bf16 arenas (a bf16 model's paged cache): the plain version equals
+    the reference's XLA twin bit for bit and its Pallas body (interpret
+    mode, float32 scores and P.V) within the bf16 tolerance of
+    tests/test_kernels.py:10, 2e-2; rows at ragged positions, a null row
+    among them. The arena's values are bf16 in both packages (rounded
+    once, by JAX), q float32."""
+    rng = np.random.default_rng(7 + G)
+    B, KV, hd, P, S = 3, 2, 16, 8, 32
+    H = KV * G
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    cur = np.asarray([5, 17, 31], np.int32)
+    _, arena, pt = _arena(rng, B, S, KV, hd, P, False, null_rows)
+    ka, va = (jnp.asarray(a, jnp.bfloat16) for a in arena)
+    args = (jnp.asarray(q), ka, va, jnp.asarray(pt), jnp.asarray(cur))
+    ref_xla = np.asarray(jpaged(*args))
+    ref_pallas = np.asarray(jpaged(*args, interpret=True))
+    k, v = (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+            for a in (ka, va))
+    ops.reset_counts()
+    out = ops.paged_decode_attention(torch.from_numpy(q), k, v,
+                                     torch.from_numpy(pt),
+                                     torch.from_numpy(cur))
+    assert (ops.counts["paged_decode"].plain_calls,
+            ops.counts["paged_decode"].launches) == (1, 0)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B, H, hd)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_array_equal(out.numpy(), ref_xla)
+    np.testing.assert_allclose(out.numpy(), ref_pallas, atol=2e-2, rtol=2e-2)

@@ -10,6 +10,8 @@ flash I/O seconds too) and with the int8 cache; under temperature sampling
 its paged tokens must equal its own contiguous tokens. Page pressure must
 preempt the same victim as the reference, abort must release every page,
 and the paged options must be validated as the reference validates them.
+A bf16 model (bf16 page arena) must give the reference's bf16 paged
+server's tokens and counters, the reference run compiled.
 """
 import dataclasses
 
@@ -221,3 +223,38 @@ def test_paged_validation_matches_reference(f32_pair):
                               max_new_tokens=10))
     server.submit(Request(uid=1, prompt=list(range(1, 20)),
                           max_new_tokens=10))           # 8 pages: fits
+
+
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+def test_bf16_paged_server_matches_reference():
+    """A bf16 model (bf16 params, compute and page arena) served paged: the
+    port's greedy tokens, page-pool summary and server counters equal the
+    reference's bf16 paged server's, the reference run compiled (its
+    tokens need no `jax.disable_jit()` here), and its tokens equal the
+    port's own bf16 contiguous server's; every decode attention went
+    through the dispatcher's plain version."""
+    jmodel, jparams, model, params = _pair(seed=4, **BF16)
+    assert model.cfg.dtype() == torch.bfloat16
+    reqs = _requests(seed=9)
+    jres, jserver = _serve(JInferenceServer, JRequest, jmodel, jparams, reqs,
+                           **PAGED)
+    ops.reset_counts()
+    res, server = _serve(InferenceServer, Request, model, params, reqs,
+                         device="cpu", **PAGED)
+    paged = ops.counts["paged_decode"]
+    assert (paged.launches, paged.plain_calls) == (
+        0, server.stats.decode_steps * SMALL["n_layers"])
+    assert server._pool.cache_groups[0]["sub_0"].k.dtype == torch.bfloat16
+    _assert_same_tokens(res, jres)
+    assert server.page_summary() == jserver.page_summary()
+    assert dataclasses.asdict(server.stats) | dict(
+        prefill_seconds=0, decode_seconds=0) == \
+        dataclasses.asdict(jserver.stats) | dict(prefill_seconds=0,
+                                                 decode_seconds=0)
+    assert server.stats.prefix_hits >= 1 and server.stats.cow_copies >= 1
+    base, _ = _serve(InferenceServer, Request, model, params, reqs,
+                     device="cpu")
+    _assert_same_tokens(res, base)
+    _reclaimed(server)
