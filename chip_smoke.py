@@ -8,12 +8,14 @@ Phases, in order (any failure raises and the script exits non-zero):
   2. build: compile every CUDA source of the port with nvcc (sm_90a), one
      process per source, all started together.
   3. kernel: the fused segment-FFN kernel against its plain PyTorch version
-     on the card, f32 / int8 / gated, with padded segment ids; max error,
-     kernel and plain times (CUDA events around the Python call, L2 flushed
-     between launches, median of 30), the kernels' own device time from
-     `torch.profiler` with a cold and a warm L2, and the bound (bytes over
+     on the card (rtol = atol = 1e-4, the same bits over two launches), f32
+     / int8 / bf16 rows, gated, with padded segment ids, and mistral-7b-
+     relu's widths with all 112 segments in bf16; max error, the launch
+     plan, kernel and plain times (CUDA events around the Python call, L2
+     flushed between launches, median of 30), the kernel's own device time
+     from `torch.profiler` with a cold and a warm L2, the bound (bytes over
      3.35 TB/s vs fp32 flops over 67 TFLOP/s, the H100 SXM data-sheet
-     rates).
+     rates), and `index_select` + `torch.mm` as a yardstick (not one call).
   4. slice: full-width opt-350m (24 layers, d_model 1024, d_ff 4096, vocab
      50272, random weights from --seed; no depth cut) served through
      `InferenceServer(mode="offload")` — 4 requests, 32-token prompts, 16
@@ -22,7 +24,16 @@ Phases, in order (any failure raises and the script exits non-zero):
      kernel launched decode_steps x 24 times and the plain version never ran
      during offload decode, and offload tokens equal resident tokens (a
      difference is accepted only at a resident top-2 logit margin < 1e-4).
-  5. breakdown: the slice's requests once more per mode, their decode steps
+     Then the model cast to bf16 (params, compute, flash bundles) served
+     offload from its own `build_offload_runtime`: fused launches =
+     decode_steps x 24, no plain call, the kernel = its plain version on
+     layer 0's last inputs (1e-4), and the tokens of the same bf16 offload
+     decode on the CPU (plain versions, same weights and placements) unless
+     the CPU run's top-2 logit margin at the first difference is below
+     1e-3. (Not against the bf16 resident run: offload makes the residual
+     stream float32 after the first FFN, as the reference does.)
+  5. breakdown: the slice's requests once more per mode (and the bf16
+     offload run), their decode steps
      under `torch.profiler` and the port's tracer: wall, device time and
      idle share per step, the FFN kernel's device time, the top device
      kernels, and the offload engine's host spans (probe / read / admit).
@@ -149,7 +160,7 @@ FP32_FLOPS = 67e12             # H100 SXM data sheet, fp32 outside tensor cores
 TOL = 1e-4                     # fp32; the kernel sums in another order
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sparse_ffn_fused.cu"
 KERNEL_REPLACES = "src/repro/kernels/sparse_ffn.py:165"
-FFN_KERNELS = ("up_act_kernel", "down_kernel", "sum_segments_kernel")
+FFN_KERNELS = ("sparse_ffn_fused_kernel",)
 PAGED_TOL = {"float32": 1e-5, "int8": 1e-5,   # online softmax, rows in
              "bfloat16": 2e-2}                 # another order; bf16: the
                                   # plain version rounds scores and P to bf16
@@ -268,7 +279,7 @@ def kernel_device_ms(fn, flush, cold: bool, names=FFN_KERNELS,
 # -- kernel phase --------------------------------------------------------------
 
 KERNEL_CASES = [
-    # name, weight dtype, activation, gated, S, padded ids
+    # name, weight dtype, activation, gated, S, padded ids[, D, N]
     ("main_path_f32_relu_S32", "float32", "relu", False, 32, 0),
     ("f32_relu_S8_pad", "float32", "relu", False, 8, 2),
     ("int8_relu_S32_pad", "int8", "relu", False, 32, 4),
@@ -278,6 +289,12 @@ KERNEL_CASES = [
     ("int8_silu_gated_S8_pad", "int8", "silu", True, 8, 2),
     ("f32_gelu_S8_pad", "float32", "gelu", False, 8, 2),
     ("f32_relu2_S8_pad", "float32", "relu2", False, 8, 2),
+    # the bf16 model's offload path (bf16 rows); mistral-7b-relu's widths
+    # with every one of its 112 segments
+    ("main_path_bf16_relu_S32", "bfloat16", "relu", False, 32, 0),
+    ("bf16_silu_gated_S32_pad", "bfloat16", "silu", True, 32, 4),
+    ("mistral7b_bf16_relu_S112", "bfloat16", "relu", False, 112, 0, 4096,
+     14336),
 ]
 
 
@@ -286,7 +303,8 @@ def kernel_inputs(gen, dtype, gated, S, n_pad, B=4, D=1024, N=4096, seg=128,
     """Decode-shaped inputs on the card. `density` is the live share of a
     segment's neurons: 1 - 0.5**4, what a 4-row batch of random-weight ReLU
     masks covers. Padded rows get random scales too: the kernel must ignore
-    them."""
+    them. bf16 rows come with x in bf16, as the offload path's first layer
+    gives it (later layers give float32)."""
     import torch
     dev = gen.device
     x = torch.randn((B, D), generator=gen, device=dev)
@@ -296,7 +314,8 @@ def kernel_inputs(gen, dtype, gated, S, n_pad, B=4, D=1024, N=4096, seg=128,
         if dtype == "int8":
             return torch.randint(-127, 128, (N, D), generator=gen, device=dev,
                                  dtype=torch.int8)
-        return torch.randn((N, D), generator=gen, device=dev) * std
+        w = torch.randn((N, D), generator=gen, device=dev) * std
+        return w.to(getattr(torch, dtype))
 
     w_up, w_down = weights(D ** -0.5), weights(N ** -0.5)
     w_gate = weights(D ** -0.5) if gated else None
@@ -307,6 +326,8 @@ def kernel_inputs(gen, dtype, gated, S, n_pad, B=4, D=1024, N=4096, seg=128,
     base = (torch.rand((S, seg), generator=gen, device=dev) * 2e-4 + 3e-4
             if dtype == "int8" else torch.ones((S, seg), device=dev))
     scale_tiles = (base * live).contiguous()
+    if dtype == "bfloat16":
+        x = x.bfloat16()
     return x, w_up, w_down, seg_ids, scale_tiles, w_gate
 
 
@@ -318,51 +339,89 @@ def bound_of(x, w_up, seg_ids, scale_tiles, gated, seg=128):
     B, D = x.shape
     live_rows = int(((seg_ids >= 0)[:, None] & (scale_tiles != 0)).sum())
     nbytes = (live_rows * D * n_mats * w_up.element_size()
-              + 2 * x.numel() * 4 + seg_ids.numel() * 4
-              + scale_tiles.numel() * 4)
+              + x.numel() * x.element_size() + x.numel() * 4
+              + seg_ids.numel() * 4 + scale_tiles.numel() * 4)
     flops = 2 * B * live_rows * D * n_mats
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(dev, seed: int) -> dict:
+def fused_yardstick(x, w_up, w_down, seg_ids, tiles, w_gate, activation,
+                    flush, seg=128):
+    """ms of `index_select` of the live rows + two `torch.mm` (and the
+    gate's) for the same function on 0/1 multipliers: float32 with TF32
+    off, bf16 rows in bf16. Not one call (no single PyTorch call computes
+    it) and a yardstick only: the port never calls it. None for int8 rows,
+    which `torch.mm` does not take as they are."""
+    import torch
+    from repro_torch.models.layers import apply_activation
+    if w_up.dtype == torch.int8:
+        return None
+    assert not torch.backends.cuda.matmul.allow_tf32
+    ids = seg_ids.long()
+    live = (ids >= 0)[:, None] & (tiles != 0)
+    rows = (ids[:, None] * seg + torch.arange(seg, device=ids.device))[live]
+
+    def f():
+        xw = x.to(w_up.dtype)
+        a = apply_activation(torch.mm(xw, torch.index_select(w_up, 0, rows).T),
+                             activation)
+        if w_gate is not None:
+            a = a * torch.mm(xw, torch.index_select(w_gate, 0, rows).T)
+        return torch.mm(a, torch.index_select(w_down, 0, rows))
+
+    return time_ms(f, flush)
+
+
+def kernel_phase(dev, seed: int, reduced: bool) -> dict:
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sparse_ffn import sparse_ffn_segments_fused_plain
+    from repro_torch.kernels.sparse_ffn import (
+        launch_plan, sparse_ffn_segments_fused_plain)
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     cases = []
-    for name, dtype, act, gated, S, n_pad in KERNEL_CASES:
+    for name, dtype, act, gated, S, n_pad, *widths in KERNEL_CASES:
+        D, N = widths or (1024, 4096)
+        if reduced:             # the CPU rehearsal keeps opt-350m's widths
+            D, N, S = 1024, 4096, min(S, 32)
         x, w_up, w_down, seg_ids, tiles, w_gate = kernel_inputs(
-            gen, dtype, gated, S, n_pad)
+            gen, dtype, gated, S, n_pad, D=D, N=N)
         kw = dict(seg_size=128, activation=act)
-        y_kernel = ops.sparse_ffn_segments_fused(x, w_up, w_down, seg_ids,
-                                                 tiles, w_gate, **kw)
-        y_plain = sparse_ffn_segments_fused_plain(x, w_up, w_down, seg_ids,
-                                                  tiles, w_gate, **kw)
+        args = (x, w_up, w_down, seg_ids, tiles, w_gate)
+        y_kernel = ops.sparse_ffn_segments_fused(*args, **kw)
+        y_plain = sparse_ffn_segments_fused_plain(*args, **kw)
         sync(dev)
         assert y_kernel.shape == y_plain.shape == x.shape, name
         assert bool(torch.isfinite(y_kernel).all()), f"{name}: non-finite"
         err = float((y_kernel - y_plain).abs().max())
         ok = bool(torch.allclose(y_kernel, y_plain, rtol=TOL, atol=TOL))
+        same = bool(torch.equal(y_kernel,
+                                ops.sparse_ffn_segments_fused(*args, **kw)))
+
         def kernel():
-            return ops.sparse_ffn_segments_fused(
-                x, w_up, w_down, seg_ids, tiles, w_gate, **kw)
+            return ops.sparse_ffn_segments_fused(*args, **kw)
 
         ms = time_ms(kernel, flush)
         device_cold_ms = kernel_device_ms(kernel, flush, cold=True)
         device_warm_ms = kernel_device_ms(kernel, flush, cold=False)
         plain_ms = time_ms(lambda: sparse_ffn_segments_fused_plain(
-            x, w_up, w_down, seg_ids, tiles, w_gate, **kw), flush)
+            *args, **kw), flush)
         bound_ms, bound_by = bound_of(x, w_up, seg_ids, tiles, gated)
         case = dict(case=name, shape=[x.shape[0], x.shape[1], w_up.shape[0], S],
-                    n_pad=n_pad, max_abs_err=err, allclose=ok, ms=ms,
+                    rows=dtype, n_pad=n_pad, max_abs_err=err, allclose=ok,
+                    deterministic=same, ms=ms,
                     device_cold_ms=device_cold_ms,
                     device_warm_ms=device_warm_ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    yardstick_not_one_call_ms=fused_yardstick(
+                        *args, act, flush),
+                    plan=(launch_plan(x, w_up, seg_ids, tiles, gated)._asdict()
+                          if dev.type == "cuda" else None))
         emit({"kernel_case": case})
         assert ok, f"{name}: kernel disagrees with the plain version ({err})"
+        assert same, f"{name}: two launches gave different bits"
         cases.append(case)
     del flush
     return {"cases": cases}
@@ -478,12 +537,136 @@ def slice_phase(dev, seed: int, n_requests: int, prompt_len: int,
     emit({"slice_setup": {"init_params_s": init_s,
                           "build_offload_runtime_s": runtime_s,
                           "mismatches": mismatches}})
+    bf16 = slice_bf16_run(dev, seed, model, params, reqs, max_len)
     return {"launches": launches, "model": model, "params": params,
+            "bf16": bf16,
             "runtime": runtime, "reqs": reqs, "max_len": max_len,
             "offload_results": [(h.uid, h.result.tokens, h.result.io_seconds)
                                 for h in off_handles],
             "main_ms_per_step": {r["mode"]: r["decode_ms_per_step"]
                                  for r in (off_row, res_row)}}
+
+
+BF16_MARGIN = 1e-3
+
+
+def slice_bf16_run(dev, seed: int, model, params, reqs, max_len) -> dict:
+    """The slice's model cast to bf16 (bf16 params, compute and bundles)
+    served offload through `build_offload_runtime` and `InferenceServer`,
+    counts set to 0 just before and read just after; the fused kernel
+    against its plain version on the inputs of layer 0's last call; then
+    the same requests on the CPU (plain versions, the same weights and the
+    card runtime's placements), each step's logits recorded, whose tokens
+    the card run must give unless the CPU run's top-2 logit margin at the
+    first difference is below BF16_MARGIN. The bf16 resident run is no
+    reference: offload turns the residual stream float32 after the first
+    FFN (the reference's promotion), resident does not."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_ffn import sparse_ffn_segments_fused_plain
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import (OffloadedFFNRuntime,
+                                            build_offload_runtime)
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.store.packer import extract_dense_ffn_bundles
+
+    bmodel, bparams = bf16_model(model, params)
+    cfg = bmodel.cfg
+    t0 = time.perf_counter()
+    runtime = build_offload_runtime(bmodel, bparams,
+                                    rng=np.random.default_rng(seed),
+                                    calib_batch=(8, 64), device=dev)
+    sync(dev)
+    runtime_s = time.perf_counter() - t0
+    assert runtime.io_summary()["ffn_kernel"] == "segments"
+    w0 = runtime._segment_weights[0][0]
+    assert w0.dtype == torch.bfloat16
+
+    def serve(m, p, rt, device, record=None):
+        server = InferenceServer(m, p, max_slots=len(reqs), max_len=max_len,
+                                 mode="offload", offload=rt, device=device)
+        if record is not None:
+            decode = server._decode_offload
+
+            def recorded(active):
+                out = decode(active)
+                record.append(np.asarray(out[0], np.float32))
+                return out
+            server._decode_offload = recorded
+        handles = [server.submit(r) for r in reqs]
+        server.drain()
+        sync(torch.device(device) if isinstance(device, str) else device)
+        return handles, server.stats
+
+    last = {}
+    real = ops.sparse_ffn_segments_fused
+
+    def recording(x, w_up, *a, **kw):
+        if w_up is w0:          # layer 0's call: keep its inputs
+            last.update(args=(x, w_up, *a), kw=kw)
+        return real(x, w_up, *a, **kw)
+
+    ops.sparse_ffn_segments_fused = recording
+    try:
+        ops.reset_counts()
+        handles, st = serve(bmodel, bparams, runtime, dev)
+        ffn = ops.counts["sparse_ffn_segments_fused"]
+        launches, plain_calls = ffn.launches, ffn.plain_calls
+    finally:
+        ops.sparse_ffn_segments_fused = real
+    row = {"mode": "offload", "dtype": "bfloat16",
+           "build_offload_runtime_s": runtime_s,
+           "decode_steps": st.decode_steps,
+           "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+           "kernel_launches": launches, "plain_calls": plain_calls,
+           "expected_launches": st.decode_steps * runtime.n_layers}
+    for h in handles:
+        assert h.result.finish_reason == "length", (h.uid, h.result)
+    taken, other = ((launches, plain_calls) if dev.type == "cuda"
+                    else (plain_calls, launches))
+    assert other == 0, row
+    assert taken == st.decode_steps * runtime.n_layers > 0, row
+
+    # the kernel against its plain version on layer 0's live rows
+    x0 = last["args"][0]
+    y_kernel = ops.sparse_ffn_segments_fused(*last["args"], **last["kw"])
+    y_plain = sparse_ffn_segments_fused_plain(*last["args"], **last["kw"])
+    sync(dev)
+    err = float((y_kernel - y_plain).abs().max())
+    row.update(layer0_x_dtype=str(x0.dtype).replace("torch.", ""),
+               layer0_live_segments=int((last["args"][3] >= 0).sum()),
+               layer0_max_abs_err=err)
+    assert bool(torch.allclose(y_kernel, y_plain, rtol=TOL, atol=TOL)), row
+
+    # the same decode on the CPU, each step's logits recorded
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(bparams, "cpu")
+    cpu_runtime = OffloadedFFNRuntime(
+        cfg, extract_dense_ffn_bundles(cfg, cpu_params),
+        [e.placement for e in runtime.engines], device="cpu")
+    rows = []
+    cpu_handles, _ = serve(cpu_model, cpu_params, cpu_runtime, "cpu", rows)
+    mismatches = []
+    for slot, (h, hc) in enumerate(zip(handles, cpu_handles)):
+        t = first_divergence(h.result.tokens, hc.result.tokens)
+        if t is None:
+            continue
+        if t == 0:      # the prefill's token: dense in both
+            margin = decode_margin(cpu_model, cpu_params, reqs[slot].prompt,
+                                   hc.result.tokens, 0, max_len)
+        else:           # token t comes out of decode step t (uid = slot)
+            top2 = np.sort(rows[t - 1][slot])[-2:]
+            margin = float(top2[1] - top2[0])
+        mismatches.append({"uid": h.uid, "step": t, "margin": margin})
+        emit({"token_mismatch": dict(mismatches[-1], run="bf16 offload card",
+                                     reference="bf16 offload cpu")})
+        assert margin < BF16_MARGIN, mismatches
+    row["mismatches_vs_cpu"] = mismatches
+    emit({"slice": row})
+    del cpu_params, cpu_model, cpu_runtime
+    return {"model": bmodel, "params": bparams, "runtime": runtime,
+            "launches": taken, "ms_per_step": row["decode_ms_per_step"]}
 
 
 def decode_margin(model, params, prompt, tokens, t: int, max_len: int,
@@ -1921,11 +2104,17 @@ def main(argv=None) -> int:
         emit({"build": {"seconds": time.perf_counter() - t0,
                         "libraries": [p.name for p in libs.values()]}})
 
-    kern = kernel_phase(dev, args.seed)
+    kern = kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
     sl = slice_phase(dev, args.seed, n_requests, prompt_len, new_tokens,
                      reduced=args.cpu_rehearsal)
     breakdown_phase(dev, sl["model"], sl["params"], sl["runtime"],
                     sl["reqs"], sl["max_len"], sl["main_ms_per_step"])
+    bf = sl.pop("bf16")
+    breakdown_phase(dev, bf["model"], bf["params"], bf["runtime"],
+                    sl["reqs"], sl["max_len"], {"offload": bf["ms_per_step"]},
+                    path="slice_bf16")
+    bf16_launches = bf["launches"]
+    del bf
     pkern = paged_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
     pg = paged_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"],
                      reduced=args.cpu_rehearsal)
@@ -1944,6 +2133,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
         return 3
     main_case = kern["cases"][0]
+    main_bf16 = next(c for c in kern["cases"]
+                     if c["case"] == "main_path_bf16_relu_S32")
     paged_case = pkern["cases"][0]
     paged_bf16 = next(c for c in pkern["cases"]
                       if c["case"] == "mistral7b_long_bf16")
@@ -1955,13 +2146,20 @@ def main(argv=None) -> int:
         "name": "sparse_ffn_segments_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sl["launches"],
+        "launches_by_run": {"offload_float32": sl["launches"],
+                            "offload_bfloat16": bf16_launches},
         "max_abs_err": max(c["max_abs_err"] for c in kern["cases"]),
         "ms": main_case["ms"],
         "device_cold_ms": main_case["device_cold_ms"],
         "device_warm_ms": main_case["device_warm_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None}, {
+        "bound_by": main_case["bound_by"], "library_ms": None,
+        "yardstick_not_one_call_ms": main_case["yardstick_not_one_call_ms"],
+        # the bf16 model's offload path (bf16 rows) beside it
+        "main_path_bf16_relu_S32": {k: main_bf16[k] for k in (
+            "ms", "device_cold_ms", "device_warm_ms", "plain_ms", "bound_ms",
+            "bound_by", "yardstick_not_one_call_ms")}}, {
         # the serving shape's float32 case; every case's line is above
         "name": "paged_decode", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

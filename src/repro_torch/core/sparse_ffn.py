@@ -67,7 +67,22 @@ def sparse_ffn_from_bundles(
 
 def make_bundles(w: FFNWeights) -> np.ndarray:
     """Pack FFN weights into per-neuron flash bundles [n, n_mats*d] (host
-    numpy: bundles are what the simulated flash store holds)."""
+    numpy: bundles are what the simulated flash store holds). numpy has no
+    bf16, so bf16 weights give their 16-bit patterns as uint16: 2 bytes an
+    element, as the reference's bf16 bundles (`bundle_tensor` reads them
+    back)."""
     cols = ([w.w_gate, w.w_up, w.w_down] if w.w_gate is not None
             else [w.w_up, w.w_down])
-    return torch.cat(cols, dim=-1).cpu().numpy()
+    b = torch.cat(cols, dim=-1).cpu()
+    if b.dtype == torch.bfloat16:
+        return b.view(torch.int16).numpy().view(np.uint16)
+    return b.numpy()
+
+
+def bundle_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host bundle payload as a tensor sharing its memory: uint16 rows
+    are bf16 bit patterns (`make_bundles`) and come back as bfloat16,
+    unrounded."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

@@ -78,6 +78,7 @@ constexpr int kPasses = 4;      // slot passes per tile: T = kPasses * slots a p
 constexpr int kStages = 3;      // tiles in flight in the shared-memory ring
 constexpr int kMaxHeads = 8;
 constexpr int kMaxChunk = 2048; // slots a split takes at most (positions in smem)
+constexpr int kMaxDevices = 64; // devices whose shared-memory limit is kept
 static_assert(kMaxHeads <= kWarps, "the softmax gives each head a warp");
 
 // The geometry the host, the wrapper's `plan` and the kernel agree on.
@@ -679,19 +680,23 @@ int launch_one(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(gm, a.G, a.hd, MAXG);
   auto kernel = swa_split_kernel<T, NARROW, MMA, NCH, MAXG>;
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    // all of the SM's unified memory as shared memory, so that two blocks
-    // of ~105 KB fit
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  // the dynamic shared-memory limit is an attribute of the function on each
+  // device: raised per device; all of the SM's unified memory as shared
+  // memory, so that two blocks of ~105 KB fit
+  static size_t smem_set[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices || smem > smem_set[device]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
+    if (device < kMaxDevices) smem_set[device] = smem;
   }
   if (a.blocks_per_sm != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -754,8 +759,8 @@ int launch_t(const Args& a) {
 // cudaStream_t. `scratch` is caller-allocated f32, (2 + hd) * n floats
 // with n = B * H * splits: the splits' maxima [B, H, splits], their sums,
 // then their accumulators [B, H, splits, hd]. `counters` is int32 [B, KV],
-// zero on entry and left zero (the merge tickets; launches that share it
-// run on one stream). `dtype` 0 = float32, 1 = bfloat16 (q, k, v and out
+// zero on entry and left zero (the merge tickets, which no launch on
+// another stream may share). `dtype` 0 = float32, 1 = bfloat16 (q, k, v and out
 // alike).
 // `cur_per_row` 1 reads cur_pos[b] for row b, 0 reads cur_pos[0] for every
 // row. `narrow` 1 takes the element-wise instantiation (rows whose bytes are

@@ -52,7 +52,9 @@ def sparse_ffn_segments_fused(
     `seg_ids[s] * seg_size + j` before both products: the int8 dequant scale
     (1.0 for float payloads) for neurons in the activated union, 0.0 for
     covered-but-not-activated neurons — exact for relu/relu2/gelu/silu since
-    act(0) == 0. Entries of -1 in `seg_ids` are padding and contribute 0."""
+    act(0) == 0. Entries of -1 in `seg_ids` are padding and contribute 0.
+    Rows are float32, bfloat16 or int8; x is taken as float32, as the
+    reference's op casts it (`src/repro/kernels/ops.py:104`)."""
     if x.device.type == "cpu":
         sparse_ffn.counts.plain_calls += 1
         return sparse_ffn.sparse_ffn_segments_fused_plain(
@@ -60,7 +62,7 @@ def sparse_ffn_segments_fused(
             seg_size=seg_size, activation=activation)
     if x.device.type == "cuda":
         return sparse_ffn.sparse_ffn_segments_fused_cuda(
-            x, w_up, w_down, seg_ids, scale_tiles, w_gate,
+            x.float(), w_up, w_down, seg_ids, scale_tiles, w_gate,
             seg_size=seg_size, activation=activation)
     raise ValueError(f"sparse_ffn_segments_fused: unsupported device "
                      f"{x.device}")

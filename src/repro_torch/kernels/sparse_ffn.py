@@ -12,9 +12,10 @@ The activated neuron set arrives as segment ids (each segment = `seg`
 consecutive neurons of the placement-permuted physical layout) plus a
 per-neuron multiplier tile `scale_tiles[s, j]` = dequant scale (1.0 for
 float payloads) x membership in the served union. Weight rows may be int8
-(the NeuronPack storage dtype) or float32; they are dequantized and masked
-on the device, right before the products. Segment ids of -1 are padding and
-contribute exactly 0.
+(the NeuronPack storage dtype), bfloat16 (a bf16 model's bundles) or
+float32; they are dequantized or upcast and masked on the device, right
+before the float32 products, and the result is float32 whatever x's float
+dtype. Segment ids of -1 are padding and contribute exactly 0.
 
 `sparse_ffn_segments_fused_cuda` launches the hand-written kernel in
 `csrc/sparse_ffn_fused.cu` (see the note there for its bound and design);
@@ -39,7 +40,8 @@ products; `ops.sparse_ffn_segments` dispatches, with its own counters
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,7 +49,7 @@ from repro_torch.kernels.build import Counts, load_library
 from repro_torch.models.layers import apply_activation
 
 ACTIVATIONS = {"relu": 0, "relu2": 1, "gelu": 2, "silu": 3}
-WEIGHT_DTYPES = (torch.float32, torch.int8)
+WEIGHT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 SEGMENT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,9 +95,116 @@ def _check(cond: bool, msg: str) -> None:
 def _bind(lib: ctypes.CDLL):
     fn = lib.sparse_ffn_segments_fused_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+CHUNK = 1024            # a stage row's columns (the .cu's kChunk)
+MAX_D = 8 * CHUNK       # widths the kernel's register-held y covers
+MAX_RPB = 2048          # flattened rows a block may own
+CLUSTER_SIZES = (8, 4, 2)
+
+
+def group_rows(B: int, D: int) -> int:
+    """Batch rows the kernel takes at once at width D (its y and x for
+    them live in registers and shared memory): 4 or 8 up to 1024 columns,
+    4 up to 4096, 2 up to 8192; a larger B runs the groups in turn."""
+    if D <= CHUNK:
+        return 4 if B <= 4 else 8
+    return 4 if D <= 4 * CHUNK else 2
+
+
+def tile_rows(nb: int, gated: bool) -> int:
+    """Weight rows a tile holds: its up (and gate) dot products for the nb
+    batch rows, at most 32 a thread, are reduced together."""
+    return min(8, 32 // (nb * (2 if gated else 1)))
+
+
+class FusedPlan(NamedTuple):
+    """How one launch cuts the work (`csrc/sparse_ffn_fused.cu`)."""
+    nb: int        # batch rows a group
+    groups: int    # groups of batch rows, run in turn
+    cluster: int   # blocks a thread-block cluster
+    blocks: int    # grid size, a whole number of clusters
+    rpb: int       # rows of the flattened [S * seg] tile a block owns
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, D: int, rows: int, gated: bool, cluster: int,
+         clusters_per_wave: int) -> FusedPlan:
+    """The launch for `rows` = S * seg candidate rows: one wave of
+    clusters (`clusters_per_wave` as CUDA's occupancy reports for this
+    instantiation), but no more blocks than tiles of rows, and more waves
+    only where a block would own more than MAX_RPB rows."""
+    nb = group_rows(B, D)
+    tiles = -(-rows // tile_rows(nb, gated))
+    n_cl = max(1, min(clusters_per_wave, -(-tiles // cluster)))
+    if -(-rows // (n_cl * cluster)) > MAX_RPB:
+        n_cl = -(-rows // (MAX_RPB * cluster))
+    return FusedPlan(nb=nb, groups=-(-B // nb), cluster=cluster,
+                     blocks=n_cl * cluster,
+                     rpb=-(-rows // (n_cl * cluster)))
+
+
+@functools.lru_cache(maxsize=None)
+def _wave(index: int, D: int, dtype: int, gated: bool, nb: int) -> tuple:
+    """(cluster size, clusters the card holds at once) for the
+    instantiation a launch at these widths takes: the largest size among
+    CLUSTER_SIZES that keeps at least 90% as many SMs busy as the best one
+    (a larger cluster leaves fewer partials for the last block to add)."""
+    lib = load_library("sparse_ffn_fused")
+    fn = lib.sparse_ffn_segments_fused_max_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    waves = {}
+    with torch.cuda.device(index):
+        for c in CLUSTER_SIZES:
+            n = ctypes.c_int(0)
+            err = fn(D, dtype, int(gated), nb, c, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"sparse_ffn_segments_fused: occupancy "
+                                   f"query failed with CUDA error {err}")
+            waves[c] = n.value
+    busy = max(c * n for c, n in waves.items())
+    if busy == 0:
+        raise RuntimeError("sparse_ffn_segments_fused: no cluster of the "
+                           "kernel fits on the card")
+    c = max(c for c, n in waves.items() if c * n >= 0.9 * busy)
+    return c, waves[c]
+
+
+def launch_plan(x: torch.Tensor, w_up: torch.Tensor, seg_ids: torch.Tensor,
+                scale_tiles: torch.Tensor, gated: bool) -> FusedPlan:
+    """The plan `sparse_ffn_segments_fused_cuda` launches these inputs
+    with (x on the card)."""
+    B, D = x.shape
+    nb = group_rows(B, D)
+    cluster, per_wave = _wave(x.device.index or 0, D,
+                              WEIGHT_DTYPES[w_up.dtype], gated, nb)
+    return plan(B, D, seg_ids.shape[0] * scale_tiles.shape[1], gated,
+                cluster, per_wave)
+
+
+Scratch = Tuple[torch.Tensor, torch.Tensor]
+_scratch: Dict[Tuple[torch.device, int], Scratch] = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, n_part: int,
+                 n_tickets: int) -> Scratch:
+    """The clusters' partial sums (f32) and the slices' tickets (int32,
+    zeros that every launch leaves at zero) for launches on `stream`, kept
+    per (device, stream) and grown as needed: launches on two streams may
+    overlap, so they never share them."""
+    part, tickets = _scratch.get((dev, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 64), dtype=torch.int32,
+                              device=dev)
+    _scratch[dev, stream] = (part, tickets)
+    return part, tickets
 
 
 def sparse_ffn_segments_fused_cuda(
@@ -111,8 +220,10 @@ def sparse_ffn_segments_fused_cuda(
 ) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream. Validates
     device, dtype, shape, contiguity and alignment and raises ValueError on
-    what the kernel does not take; raises RuntimeError if a launch fails.
-    Outputs and scratch are allocated here; nothing synchronises."""
+    what the kernel does not take; raises RuntimeError if the launch fails.
+    x may be any float dtype (taken as float32); weights are float32,
+    bfloat16 or int8, all three alike. The output is allocated here, the
+    scratch kept per stream; nothing synchronises."""
     dev = x.device
     tensors = {"x": x, "w_up": w_up, "w_down": w_down, "seg_ids": seg_ids,
                "scale_tiles": scale_tiles}
@@ -124,10 +235,10 @@ def sparse_ffn_segments_fused_cuda(
         _check(t.is_contiguous(), f"{name} must be contiguous")
         _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     _check(activation in ACTIVATIONS, f"unknown activation {activation!r}")
-    _check(x.dtype == torch.float32 and x.ndim == 2, "x must be f32 [B, D]")
+    _check(x.is_floating_point() and x.ndim == 2, "x must be a float [B, D]")
     B, D = x.shape
     _check(w_up.dtype in WEIGHT_DTYPES,
-           f"weights must be float32 or int8, got {w_up.dtype}")
+           f"weights must be float32, bfloat16 or int8, got {w_up.dtype}")
     for name in ("w_down", "w_gate"):
         if name in tensors:
             _check(tensors[name].dtype == w_up.dtype and
@@ -136,7 +247,8 @@ def sparse_ffn_segments_fused_cuda(
     _check(w_up.ndim == 2 and w_up.shape[1] == D, "weights must be [N, D]")
     N = w_up.shape[0]
     _check(N % seg_size == 0, f"N={N} is not a multiple of seg={seg_size}")
-    _check(D % 4 == 0, f"D={D} must be a multiple of 4 (16-byte row loads)")
+    _check(D % 4 == 0, f"D={D} must be a multiple of 4 (4-byte row copies)")
+    _check(D <= MAX_D, f"D={D} > {MAX_D}")
     _check(seg_ids.dtype == torch.int32 and seg_ids.ndim == 1,
            "seg_ids must be int32 [S]")
     S = seg_ids.shape[0]
@@ -146,18 +258,21 @@ def sparse_ffn_segments_fused_cuda(
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if S == 0 or B == 0:
         return out.zero_()
-    act = torch.empty((S, B, seg_size), dtype=torch.float32, device=dev)
-    partial = torch.empty((S, B, D), dtype=torch.float32, device=dev)
+    xf = x.float()
+    p = launch_plan(x, w_up, seg_ids, scale_tiles, w_gate is not None)
     launch = _bind(load_library("sparse_ffn_fused"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(x.data_ptr(), w_up.data_ptr(),
+        part, tickets = _scratch_for(
+            dev, stream, p.groups * (p.blocks // p.cluster) * p.nb * D,
+            p.groups * p.cluster)
+        err = launch(xf.data_ptr(), w_up.data_ptr(),
                      None if w_gate is None else w_gate.data_ptr(),
                      w_down.data_ptr(), seg_ids.data_ptr(),
-                     scale_tiles.data_ptr(), act.data_ptr(),
-                     partial.data_ptr(), out.data_ptr(), B, D, N, S, seg_size,
-                     int(w_up.dtype == torch.int8), ACTIVATIONS[activation],
-                     stream)
+                     scale_tiles.data_ptr(), part.data_ptr(),
+                     tickets.data_ptr(), out.data_ptr(), B, D, N, S, seg_size,
+                     WEIGHT_DTYPES[w_up.dtype], ACTIVATIONS[activation], p.nb,
+                     p.blocks, p.cluster, p.rpb, stream)
     if err != 0:
         raise RuntimeError(f"sparse_ffn_segments_fused kernel launch failed "
                            f"with CUDA error {err}")

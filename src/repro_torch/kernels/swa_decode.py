@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -94,16 +94,18 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-_tickets: Dict[torch.device, torch.Tensor] = {}
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _merge_tickets(n: int, dev: torch.device) -> torch.Tensor:
-    """int32 [>= n] of zeros on `dev`: the kernel's merge tickets, which
-    every launch leaves at zero again, so they are allocated once."""
-    t = _tickets.get(dev)
+def _merge_tickets(n: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """int32 [>= n] of zeros on `dev` for launches on `stream` (a
+    cudaStream_t): the kernel's merge tickets, which every launch leaves at
+    zero again, so they are allocated once per stream. Launches on two
+    streams may overlap, so they never share tickets."""
+    t = _tickets.get((dev, stream))
     if t is None or t.numel() < n:
-        t = _tickets[dev] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                        device=dev)
+        t = _tickets[dev, stream] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                                device=dev)
     return t
 
 
@@ -239,7 +241,8 @@ def swa_decode_attention_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                      pos.data_ptr(), cur_pos.data_ptr(), scratch.data_ptr(),
-                     out.data_ptr(), _merge_tickets(B * KV, dev).data_ptr(),
+                     out.data_ptr(),
+                     _merge_tickets(B * KV, dev, stream).data_ptr(),
                      int(cur_pos.ndim == 1), B, W, KV, G, hd,
                      int(window), p.splits, p.chunk, p.tile, int(p.narrow),
                      DTYPES[q.dtype], float(hd ** -0.5), stream)

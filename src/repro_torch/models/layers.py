@@ -27,6 +27,16 @@ def _normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
                        device=gen.device) * std
 
 
+def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two operands, as `jnp.matmul`
+    computes it (torch refuses mixed dtypes). Offload decode reaches it with
+    float32 activations and bf16 weights: the offload FFN returns float32,
+    which makes the residual stream float32 from the first offloaded FFN on
+    (ROADMAP §3). A no-op cast when the dtypes agree."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 # -- norms -------------------------------------------------------------------
 
 def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
@@ -89,9 +99,9 @@ def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor,
     B, T = xq.shape[0], xq.shape[1]
     S = xkv.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    q = promoted_matmul(xq, p["wq"])
+    k = promoted_matmul(xkv, p["wk"])
+    v = promoted_matmul(xkv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(B, T, H, hd), k.reshape(B, S, KV, hd),
@@ -112,7 +122,8 @@ def gqa_attend(
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, T, KV, G, hd)
-    logits = torch.einsum("btkgh,bskh->bkgts", qg, k).float()
+    dt = torch.promote_types(q.dtype, k.dtype)   # as jnp.einsum
+    logits = torch.einsum("btkgh,bskh->bkgts", qg.to(dt), k.to(dt)).float()
     logits = logits * (hd ** -0.5)
     mask = torch.ones((B, T, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -246,5 +257,5 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
 
 def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return h @ p["embedding"].T.to(cfg.dtype())
-    return h @ p["lm_head"].to(cfg.dtype())
+        return promoted_matmul(h, p["embedding"].T.to(cfg.dtype()))
+    return promoted_matmul(h, p["lm_head"].to(cfg.dtype()))

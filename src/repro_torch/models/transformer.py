@@ -37,7 +37,8 @@ from repro_torch.models.kvcache import (KVCache, PagedKVCache,
 from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        attention_forward, ffn_forward,
                                        init_attention, init_ffn,
-                                       init_ffn_predictor, init_norm, rope,
+                                       init_ffn_predictor, init_norm,
+                                       promoted_matmul, rope,
                                        sparse_ffn_decode)
 
 Params = Dict[str, Any]
@@ -309,7 +310,7 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
         mix = attend_full_cache(q, cj, pos_arr)
     else:
         raise ValueError(f"unsupported cache type {type(cj).__name__}")
-    return mix @ sp["mixer"]["wo"], cj
+    return promoted_matmul(mix, sp["mixer"]["wo"]), cj
 
 
 FFNOverride = Callable[[int, torch.Tensor], torch.Tensor]

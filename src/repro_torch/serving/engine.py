@@ -40,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import BatchStepResult, EngineConfig, OffloadEngine
 from repro_torch.core.pipeline import IOScheduler
 from repro_torch.core.placement import PlacementResult
-from repro_torch.core.sparse_ffn import sparse_ffn_from_bundles
+from repro_torch.core.sparse_ffn import bundle_tensor, sparse_ffn_from_bundles
 from repro_torch.core.storage import NeuronStore, UFSDevice
 from repro_torch.device import DeviceLike, check_same_device, resolve_device
 from repro_torch.kernels import ops
@@ -284,7 +284,7 @@ class OffloadedFFNRuntime:
         store.fetch_into(ids, buf)
         buf[k:padded] = 0
         valid = torch.arange(padded, device=h.device) < k
-        bundles = torch.from_numpy(buf[:padded]).to(h.device)
+        bundles = bundle_tensor(buf[:padded]).to(h.device)
         return sparse_ffn_from_bundles(
             h, bundles, self.cfg.d_model, self.n_mats,
             activation=self.cfg.activation, valid_mask=valid)
@@ -312,7 +312,7 @@ class OffloadedFFNRuntime:
             base[:store.n_neurons] = scales
 
         def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return bundle_tensor(np.ascontiguousarray(a)).to(self.device)
 
         if self.n_mats == 3:     # bundle layout [gate | up | down]
             return dev(parts[:, 1]), dev(parts[:, 2]), dev(parts[:, 0]), base

@@ -51,7 +51,8 @@ import torch
 
 from repro_torch.core.pipeline import IOScheduler
 from repro_torch.device import DeviceLike, check_same_device, resolve_device
-from repro_torch.models.layers import apply_norm, embed_tokens, unembed
+from repro_torch.models.layers import (apply_norm, embed_tokens,
+                                       promoted_matmul, unembed)
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import stack_decode_step_layerwise
 from repro_torch.obs import get_metrics, get_tracer
@@ -956,7 +957,8 @@ class InferenceServer:
         """[n_slots, n_neurons] activation masks for one layer: the exact
         ReLU oracle, with retired/free rows zeroed so they leave the union —
         a finished request incurs no further I/O."""
-        masks = (h2 @ self._w_ups[dense_idx] > 0).cpu().numpy()
+        masks = (promoted_matmul(h2, self._w_ups[dense_idx]) > 0
+                 ).cpu().numpy()
         masks = masks & active[:, None]
         # feed the admission predictor: this layer's last true masks, plus an
         # EMA of per-column activation frequency over the active rows

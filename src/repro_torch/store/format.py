@@ -73,6 +73,12 @@ def _align(n: int) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
+def _bf16_values(bits: np.ndarray) -> np.ndarray:
+    """float32 values of bf16 bundles held as uint16 bit patterns (the
+    port's `make_bundles`; numpy has no bf16), exact."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
 def quantize_int8(rows: np.ndarray) -> tuple:
     """Per-neuron symmetric int8: returns (q [n, w] int8, scales [n] float32).
 
@@ -321,8 +327,12 @@ def write_pack(
                              f"{len(placements[i].placement)} of {n} neurons")
 
     quantized = quantize == "int8"
+    bf16 = np.asarray(bundles_per_layer[0]).dtype == np.uint16
     out_dtype = np.int8 if quantized else np.asarray(bundles_per_layer[0]).dtype
-    dtype_name = np.dtype(out_dtype).name
+    # the format has no bf16: a bf16 model packs only quantized, as the
+    # reference's, and is refused under the reference's message otherwise
+    dtype_name = ("bfloat16" if bf16 and not quantized
+                  else np.dtype(out_dtype).name)
     if dtype_name not in _DTYPES:
         raise ValueError(f"unsupported bundle dtype {dtype_name}")
 
@@ -332,7 +342,7 @@ def write_pack(
         phys = np.ascontiguousarray(np.asarray(b)[pl.placement])
         scales = None
         if quantized:
-            phys, scales = quantize_int8(phys)
+            phys, scales = quantize_int8(_bf16_values(phys) if bf16 else phys)
         rows = np.ascontiguousarray(phys, dtype=out_dtype)
         crcs = _row_crc32s(rows) if version >= 2 else None
         regions.append((pl.placement.astype("<i8"), scales, rows, crcs))

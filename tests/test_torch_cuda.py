@@ -48,13 +48,13 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, seed, B, D, N, ids, int8, gated):
-    """Odd shapes on purpose: B above the kernel's 8-row register block, D
-    not a multiple of its 128-column tile, ids out of order with padding,
-    and a sparse scale tile."""
+def _inputs(dev, seed, B, D, N, ids, rows, gated):
+    """Odd shapes on purpose: B above the kernel's group of 4 or 8 batch
+    rows, D not a multiple of its 1024-column chunk, ids out of order with
+    padding, and a sparse scale tile. `rows`: "f32", "int8" or "bf16"."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, D)).astype(np.float32)
-    if int8:
+    if rows == "int8":
         mats = [rng.integers(-127, 128, (N, D)).astype(np.int8)
                 for _ in range(3 if gated else 2)]
         base = rng.uniform(0.5, 1.5, (len(ids), SEG)) / 127 * 0.05
@@ -64,31 +64,81 @@ def _inputs(dev, seed, B, D, N, ids, int8, gated):
         base = np.ones((len(ids), SEG))
     tiles = (base * (rng.random((len(ids), SEG)) < 0.6)).astype(np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(x), t(mats[0]), t(mats[1]), t(np.asarray(ids, np.int32)),
-            t(tiles), t(mats[2]) if gated else None)
+    w = [t(m).bfloat16() if rows == "bf16" else t(m) for m in mats]
+    return (t(x), w[0], w[1], t(np.asarray(ids, np.int32)), t(tiles),
+            w[2] if gated else None)
 
 
-@pytest.mark.parametrize("activation", ["relu", "relu2", "gelu", "silu"])
-@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
-def test_kernel_matches_plain_on_card(dev, activation, gated, int8):
-    args = _inputs(dev, 7, B=11, D=520, N=6 * SEG, ids=[4, -1, 0, 5, 2, -1],
-                   int8=int8, gated=gated)
-    kw = dict(seg_size=SEG, activation=activation)
+def _check_fused(args, **kw):
+    """One launch through the dispatcher against the plain version, and the
+    same bits on a second launch (no float atomics)."""
     ops.reset_counts()
     y = ops.sparse_ffn_segments_fused(*args, **kw)
     ffn = ops.counts["sparse_ffn_segments_fused"]
     assert (ffn.launches, ffn.plain_calls) == (1, 0)
     torch.cuda.synchronize()
     ref = sparse_ffn_segments_fused_plain(*args, **kw)
+    assert bool(torch.isfinite(y).all())
     torch.testing.assert_close(y, ref, **TOL)
-    # deterministic: no atomics, the same bits on a second launch
     assert torch.equal(y, ops.sparse_ffn_segments_fused(*args, **kw))
+    return y
+
+
+@pytest.mark.parametrize("activation", ["relu", "relu2", "gelu", "silu"])
+@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
+@pytest.mark.parametrize("rows", ["f32", "int8", "bf16"])
+def test_kernel_matches_plain_on_card(dev, activation, gated, rows):
+    args = _inputs(dev, 7, B=11, D=520, N=6 * SEG, ids=[4, -1, 0, 5, 2, -1],
+                   rows=rows, gated=gated)
+    _check_fused(args, seg_size=SEG, activation=activation)
+
+
+@pytest.mark.parametrize("rows", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B,D,N,S,gated", [
+    pytest.param(12, 1024, 4096, 32, False, id="B12_opt350m"),
+    pytest.param(4, 1024, 4096, 32, True, id="B4_gated"),
+    pytest.param(4, 4096, 14336, 112, False, id="mistral7b_all_segments"),
+    pytest.param(3, 3584, 18944, 40, True, id="qwen2_7b_gated"),
+    pytest.param(5, 6144, 1024, 8, False, id="D6144_two_groups")])
+def test_kernel_at_model_widths_on_card(dev, rows, B, D, N, S, gated):
+    """The path's widths: more batch rows than a group (B = 12 runs 8 + 4),
+    mistral-7b-relu's every segment, qwen2-7b's gated widths (D = 3584,
+    not a whole number of 1024-column chunks), and D = 6144 (2 batch rows
+    a group), with a padded id; x in bf16 beside bf16 rows, as the offload
+    path's first layer gives it."""
+    ids = list(np.random.default_rng(S).permutation(N // SEG)[:S - 1]) + [-1]
+    x, *rest = _inputs(dev, S, B=B, D=D, N=N, ids=ids, rows=rows,
+                       gated=gated)
+    if rows == "bf16":
+        x = x.bfloat16()
+    _check_fused((x, *rest), seg_size=SEG,
+                 activation="silu" if gated else "relu")
+
+
+@pytest.mark.parametrize("rows", ["f32", "bf16"])
+def test_kernel_on_two_streams(dev, rows):
+    """Launches on two streams at once give the bits of a launch alone:
+    each stream has its own partials and tickets."""
+    inputs = [_inputs(dev, seed, B=4, D=1024, N=4096,
+                      ids=list(range(31, -1, -1)), rows=rows, gated=False)
+              for seed in (5, 6)]
+    kw = dict(seg_size=SEG, activation="relu")
+    alone = [sparse_ffn_segments_fused_cuda(*a, **kw) for a in inputs]
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (a, s) in enumerate(zip(inputs, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(sparse_ffn_segments_fused_cuda(*a, **kw))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(o, want) for o in got)
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
     x, w_up, w_down, ids, tiles, _ = _inputs(dev, 1, B=2, D=64, N=2 * SEG,
-                                             ids=[0, 1], int8=False,
+                                             ids=[0, 1], rows="f32",
                                              gated=False)
     with pytest.raises(ValueError, match="contiguous"):
         sparse_ffn_segments_fused_cuda(x.T.contiguous().T, w_up, w_down, ids,
@@ -97,18 +147,34 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         sparse_ffn_segments_fused_cuda(x, w_up, w_down, ids.long(), tiles)
     with pytest.raises(ValueError, match="CUDA device"):
         sparse_ffn_segments_fused_cuda(x, w_up.cpu(), w_down, ids, tiles)
-    with pytest.raises(ValueError, match="float32 or int8"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
         sparse_ffn_segments_fused_cuda(x, w_up.half(), w_down.half(), ids,
                                        tiles)
+    with pytest.raises(ValueError, match="match w_up"):
+        sparse_ffn_segments_fused_cuda(x, w_up, w_down.bfloat16(), ids, tiles)
+    with pytest.raises(ValueError, match="float"):
+        sparse_ffn_segments_fused_cuda(x.int(), w_up, w_down, ids, tiles)
 
 
-def test_offload_server_runs_the_kernel_on_card(dev):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"],
+                         ids=["f32", "bf16"])
+def test_offload_server_runs_the_kernel_on_card(dev, dtype):
+    """A tiny offload server: every dense FFN of every decode step launched
+    the fused kernel, the plain version never ran. float32: the resident
+    server's tokens. bf16 (params and compute; bf16 bundles): the same
+    offload server's tokens on the CPU (plain versions, the same weights),
+    a first difference accepted only where the CPU run's top-2 logit
+    margin there is below the bf16 tolerance, 2e-2 (offload makes the
+    residual stream float32 after the first FFN, resident does not, so the
+    two do not compare)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Request, build_offload_runtime
     from repro_torch.serving.server import InferenceServer
+    bf16 = dtype == "bfloat16"
     cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
-                     n_layers=2, vocab_size=128)
+                     n_layers=2, vocab_size=128, param_dtype=dtype,
+                     compute_dtype=dtype)
     model = build_model(cfg, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     runtime = build_offload_runtime(model, params, calib_batch=(4, 32),
@@ -116,24 +182,57 @@ def test_offload_server_runs_the_kernel_on_card(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (5, 9, 7)]
 
-    def serve(**kw):
-        server = InferenceServer(model, params, max_slots=2, max_len=32,
-                                 device=dev, **kw)
+    def serve(m=model, p=params, device=dev, slots=2, record=None, **kw):
+        server = InferenceServer(m, p, max_slots=slots, max_len=32,
+                                 device=device, **kw)
+        if record is not None:
+            decode = server._decode_offload
+
+            def recorded(active):
+                out = decode(active)
+                record.append(np.asarray(out[0], np.float32))
+                return out
+            server._decode_offload = recorded
         handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
                    for i, p in enumerate(prompts)]
         server.drain()
         return handles, server.stats
 
+    slots = 3 if bf16 else 2     # bf16: uid = slot, token t from step t - 1
     ops.reset_counts()
-    handles, stats = serve(mode="offload", offload=runtime)
+    handles, stats = serve(mode="offload", offload=runtime, slots=slots)
     assert runtime.io_summary()["ffn_kernel"] == "segments"
     ffn = ops.counts["sparse_ffn_segments_fused"]
     assert ffn.plain_calls == 0
     assert ffn.launches == stats.decode_steps * cfg.n_layers > 0
-    resident, _ = serve()
-    for h, r in zip(handles, resident):
+    for h in handles:
         assert h.result.finish_reason == "length"
-        assert h.result.tokens == r.result.tokens
+    if not bf16:
+        resident, _ = serve()
+        for h, r in zip(handles, resident):
+            assert h.result.tokens == r.result.tokens
+        return
+    assert runtime._segment_weights[0][0].dtype == torch.bfloat16
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = _to(params, "cpu")
+    cpu_runtime = build_offload_runtime(cpu_model, cpu_params,
+                                        calib_batch=(4, 32), device="cpu")
+    rows = []
+    cpu, _ = serve(cpu_model, cpu_params, "cpu", slots, rows, mode="offload",
+                   offload=cpu_runtime)
+    for h, c, prompt in zip(handles, cpu, prompts):
+        t = next((i for i, (a, b) in enumerate(zip(h.result.tokens,
+                                                     c.result.tokens))
+                  if a != b), None)
+        if t is None:
+            continue
+        if t == 0:          # the prefill's token: dense on both sides
+            margin = _top2_margin(cpu_model, cpu_params, prompt,
+                                  c.result.tokens, 0)
+        else:
+            top2 = np.sort(rows[t - 1][h.uid])[-2:]
+            margin = float(top2[1] - top2[0])
+        assert margin < 2e-2, (h.uid, t, margin)
 
 
 # -- paged decode attention ------------------------------------------------------
@@ -515,6 +614,27 @@ def test_swa_kernel_matches_plain_on_card(dev, dtype, B, H, KV, hd, W,
         q, k, v, pos, torch.tensor(scalar, dtype=torch.int32, device=dev),
         window=window)
     assert torch.equal(out0, out0t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_kernel_on_two_streams(dev, dtype):
+    """Launches on two streams at once, each over wrapped 4096-slot rings
+    long enough for many splits, give the bits of a launch alone: each
+    stream has its own merge tickets."""
+    inputs = [_swa_inputs(dev, seed, B=4, H=8, KV=2, hd=64, W=4096,
+                          curs=[5000, 3000, 40, 8191], dtype=dtype)
+              for seed in (5, 6)]
+    alone = [swa_decode_attention_cuda(*a, window=4096) for a in inputs]
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (a, s) in enumerate(zip(inputs, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(swa_decode_attention_cuda(*a, window=4096))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(o, want) for o in got)
 
 
 def test_swa_kernel_rejects_what_it_does_not_take(dev):

@@ -6,9 +6,11 @@ the dispatcher runs for CPU tensors) is held against the reference's
 Pallas kernel run in the Pallas interpreter (`interpret=True`), its XLA
 twin (`interpret=None` on the CPU) and the per-segment python oracle
 `ref.sparse_ffn_segments_fused_ref`, on the same numpy inputs: 4
-activations x gated or not x f32 / int8 weight tiles, with padded segment
-ids and over-covering segments. Tolerance rtol = atol = 2e-4, as the
-reference's own fused-kernel tests (f32 sums taken in another order).
+activations x gated or not x f32 / int8 / bf16 weight tiles (x in bf16
+beside bf16 rows where gated, as the offload path's first layer gives
+it), with padded segment ids and over-covering segments. Tolerance
+rtol = atol = 2e-4, as the reference's own fused-kernel tests (f32 sums
+taken in another order; bf16 rows are upcast exactly on both sides).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -29,12 +31,20 @@ ACTS = ["relu", "relu2", "gelu", "silu"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def _inputs(seed, n, d, B, gated, int8, n_ids=60):
-    """Raw weight tiles (int8 or f32) + per-neuron scale tiles for a sparse
-    random activated set, padded to a multiple of 8 segments with -1."""
+def _inputs(seed, n, d, B, gated, int8, n_ids=60, bf16=False):
+    """Raw weight tiles (int8, f32 or bf16) + per-neuron scale tiles for a
+    sparse random activated set, padded to a multiple of 8 segments with
+    -1."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, d)).astype(np.float32) * 0.5
-    if int8:
+    if bf16:
+        mats = [np.asarray(rng.standard_normal((n, d)) * 0.1,
+                           dtype=jnp.bfloat16)
+                for _ in range(3 if gated else 2)]
+        scales = np.ones(n, np.float32)
+        if gated:
+            x = np.asarray(x, dtype=jnp.bfloat16)
+    elif int8:
         mats = [rng.integers(-127, 128, (n, d)).astype(np.int8)
                 for _ in range(3 if gated else 2)]
         scales = rng.uniform(0.5, 1.5, n).astype(np.float32) / 127 * 0.1
@@ -55,16 +65,26 @@ def _inputs(seed, n, d, B, gated, int8, n_ids=60):
     return x, w_up, w_down, seg_ids, tiles, w_gate
 
 
+def _tensor(a):
+    """numpy -> torch; the reference's bf16 arrays by their bit patterns."""
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 @pytest.mark.parametrize("activation,gated", [("relu", False), ("relu2", False),
                                               ("gelu", False), ("silu", True),
                                               ("relu", True), ("silu", False)])
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
-def test_plain_matches_reference_kernel(activation, gated, int8):
+@pytest.mark.parametrize("rows", ["f32", "int8", "bf16"],
+                         ids=["f32", "int8", "bf16"])
+def test_plain_matches_reference_kernel(activation, gated, rows):
     n, d, B = 512, 128, 3
+    int8, bf16 = rows == "int8", rows == "bf16"
     x, w_up, w_down, seg_ids, tiles, w_gate = _inputs(
-        ACTS.index(activation) * 4 + 2 * gated + int8, n, d, B, gated, int8)
+        ACTS.index(activation) * 4 + 2 * gated + int8, n, d, B, gated, int8,
+        bf16=bf16)
     kw = dict(seg_size=SEG, activation=activation)
-    t = lambda a: None if a is None else torch.from_numpy(a)   # noqa: E731
+    t = lambda a: None if a is None else _tensor(a)            # noqa: E731
     y_port = sparse_ffn_segments_fused_plain(
         t(x), t(w_up), t(w_down), t(seg_ids), t(tiles), t(w_gate), **kw).numpy()
     j = lambda a: None if a is None else jnp.asarray(a)        # noqa: E731

@@ -164,6 +164,30 @@ def test_write_pack_rejects_what_the_reference_rejects(tmp_path):
         write_pack(tmp_path / "x", [], [])
 
 
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_write_pack_bf16_bundles_as_reference(tmp_path, quantize):
+    """bf16 bundles (the port's as uint16 bit patterns, the reference's as
+    bfloat16): the format has no bf16, so both refuse them unquantized with
+    the same message, and both quantize their values to the same int8 pack
+    byte for byte."""
+    import jax.numpy as jnp
+    bundles, jpl, tpl = _inputs()
+    jb = [np.asarray(b, dtype=jnp.bfloat16) for b in bundles]
+    tb = [b.view(np.uint16) for b in jb]
+    if quantize == "none":
+        with pytest.raises(ValueError) as je:
+            jwrite_pack(tmp_path / "j.npack", jb, jpl)
+        with pytest.raises(ValueError, match="unsupported bundle dtype "
+                                             "bfloat16") as te:
+            write_pack(tmp_path / "t.npack", tb, tpl)
+        assert str(te.value) == str(je.value)
+        return
+    jwrite_pack(tmp_path / "j.npack", jb, jpl, quantize="int8")
+    write_pack(tmp_path / "t.npack", tb, tpl, quantize="int8")
+    assert ((tmp_path / "j.npack").read_bytes()
+            == (tmp_path / "t.npack").read_bytes())
+
+
 def _io(stats):
     d = dataclasses.asdict(stats)
     d.pop("measured_seconds")          # wall clock: differs by nature
