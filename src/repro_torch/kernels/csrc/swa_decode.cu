@@ -6,13 +6,21 @@
 //
 // One new token per batch row attends, GQA style, to that row's ring:
 //   q       f32 or bf16 [B, H, hd], H = KV * G (head h reads KV head h / G)
-//   k/v     same dtype  [B, W, KV, hd] -- the reference's ring layout, read
+//   k/v     q's dtype, or bf16 under a f32 q (a bf16 model's rings once
+//           the offloaded FFN has made its residual stream f32)
+//           [B, W, KV, hd] -- the reference's ring layout, read
 //           in place (the TPU wrapper's swapaxes and pad copies of the whole
 //           ring are not repeated)
 //   pos     i32 [B, W]  position held by each slot, -1 = empty
 //   cur     i32 [] or [B] (cur_per_row), the query's position, read on the
 //           device (no host sync)
 //   out     q's dtype [B, H, hd]
+// A f32 q over bf16 rings gives float32 scores of the unrounded q and the
+// keys upcast, P as bf16 rings take it below (rounded to bf16 for P.V on
+// the tensor cores), and a f32 result: the reference's promotion
+// (`gqa_attend`, src/repro/models/layers.py:104, 114). On the tensor cores
+// q enters as two bf16 terms, hi = bf16(q) and lo = bf16(q - hi), two
+// products a k-step: what q loses there is below 2^-17 of |q| an element.
 // Slot w of row b takes part iff pos >= 0 and cur - window < pos <= cur;
 // a row with no such slot gives 0, as the TPU kernel does.
 //
@@ -275,13 +283,14 @@ __device__ __forceinline__ float warp_max(float x) {
 // rounded up. Otherwise on the CUDA cores: NCH chunks of a row a thread
 // holds in the score pass (>= cpr / lanes), MAXG query heads per KV head
 // in registers (G <= MAXG).
-template <typename T, bool NARROW, bool MMA, int NCH, int MAXG>
+// T is the rings' type, TQ q's and the output's (T, or float over bf16).
+template <typename T, typename TQ, bool NARROW, bool MMA, int NCH, int MAXG>
 __global__ void __launch_bounds__(kThreads)
-swa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+swa_split_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ pos,
                  const int* __restrict__ cur_pos, int cur_per_row,
                  float* __restrict__ part_m, float* __restrict__ part_l,
-                 float* __restrict__ part_acc, T* __restrict__ out,
+                 float* __restrict__ part_acc, TQ* __restrict__ out,
                  int* __restrict__ counters, int W, int KV, int G, int hd,
                  int window, int splits, int chunk, float scale) {
   constexpr int VE = NARROW ? 1 : 16 / static_cast<int>(sizeof(T));
@@ -317,18 +326,32 @@ swa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int spp = kThreads / lanes;          // slots per pass
   const int myslot = tid / lanes, part = tid % lanes;
 
-  // MMA: the query rows as A fragments, rows 0..7 (row lane / 4 here)
+  // MMA: the query rows as A fragments, rows 0..7 (row lane / 4 here); a
+  // f32 q as hi + lo bf16 terms (ql the lo ones)
   constexpr int KS = MMA ? 8 * NCH : 1;   // 16-wide k-steps over hd
+  constexpr bool kSplitQ = MMA && sizeof(TQ) == 4;
   uint32_t qa[KS][2];
+  uint32_t ql[kSplitQ ? KS : 1][2];
   if constexpr (MMA) {
     const int g = lane >> 2;
-    const T* qg = q + (static_cast<long>(b) * H + kvh * G + g) * hd;
+    const TQ* qg = q + (static_cast<long>(b) * H + kvh * G + g) * hd;
 #pragma unroll
     for (int st = 0; st < KS; ++st)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int d = st * 16 + h * 8 + (lane & 3) * 2;
-        qa[st][h] = (g < G && d < hd) ? bf16_pair(qg[d], qg[d + 1]) : 0u;
+        const bool ok = g < G && d < hd;
+        if constexpr (kSplitQ) {
+          const float a0 = ok ? to_float(qg[d]) : 0.f;
+          const float a1 = ok ? to_float(qg[d + 1]) : 0.f;
+          const __nv_bfloat16 h0 = __float2bfloat16(a0);
+          const __nv_bfloat16 h1 = __float2bfloat16(a1);
+          qa[st][h] = bf16_pair(h0, h1);
+          ql[st][h] = bf16_pair(__float2bfloat16(a0 - __bfloat162float(h0)),
+                                __float2bfloat16(a1 - __bfloat162float(h1)));
+        } else {
+          qa[st][h] = ok ? bf16_pair(qg[d], qg[d + 1]) : 0u;
+        }
       }
   }
   // CUDA cores: this thread's chunks of the G query rows
@@ -441,6 +464,7 @@ swa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
               uint32_t b0, b1;
               ldmatrix_x2(b0, b1, kr + st * 32);
               mma_rows8(c, qa[st][0], qa[st][1], b0, b1);
+              if constexpr (kSplitQ) mma_rows8(c, ql[st][0], ql[st][1], b0, b1);
             }
           }
           const int g = lane >> 2, t = nt * 8 + (lane & 3) * 2;
@@ -651,7 +675,7 @@ swa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 8
     for (int s = 0; s < splits; ++s) A += w[s] * __ldcg(a + static_cast<long>(s) * hd);
     out[(static_cast<long>(b) * H + kvh * G + g) * hd + d] =
-        from_float<T>(A / fmaxf(L_s[g], 1e-30f));
+        from_float<TQ>(A / fmaxf(L_s[g], 1e-30f));
   }
   if (tid == 0) counters[b * KV + kvh] = 0;        // ready for the next launch
 }
@@ -671,7 +695,7 @@ struct Args {
   int* blocks_per_sm;   // non-null: report the occupancy, launch nothing
 };
 
-template <typename T, bool NARROW, bool MMA, int NCH, int MAXG>
+template <typename T, typename TQ, bool NARROW, bool MMA, int NCH, int MAXG>
 int launch_one(const Args& a) {
   const Geom gm = geometry(a.hd, sizeof(T), NARROW);
   if (gm.tile != a.tile || a.chunk % gm.tile != 0 || a.chunk > kMaxChunk ||
@@ -679,7 +703,7 @@ int launch_one(const Args& a) {
       (a.G * a.splits + kMaxHeads) * 4 > ring_bytes(gm, a.G, a.hd))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(gm, a.G, a.hd, MAXG);
-  auto kernel = swa_split_kernel<T, NARROW, MMA, NCH, MAXG>;
+  auto kernel = swa_split_kernel<T, TQ, NARROW, MMA, NCH, MAXG>;
   // the dynamic shared-memory limit is an attribute of the function on each
   // device: raised per device; all of the SM's unified memory as shared
   // memory, so that two blocks of ~105 KB fit
@@ -707,49 +731,56 @@ int launch_one(const Args& a) {
   float* part_acc = a.scratch + 2 * n_part;
   const dim3 grid(a.KV, a.B, a.splits);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const TQ*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.pos, a.cur, a.cur_per_row, part_m, part_l,
-      part_acc, static_cast<T*>(a.out), a.counters, a.W, a.KV, a.G, a.hd,
+      part_acc, static_cast<TQ*>(a.out), a.counters, a.W, a.KV, a.G, a.hd,
       a.window, a.splits, a.chunk, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool NARROW, int NCH>
+template <typename T, typename TQ, bool NARROW, int NCH>
 int launch_g(const Args& a) {
   if constexpr (!NARROW) {     // the narrow path keeps to two instantiations
-    if (a.G <= 1) return launch_one<T, NARROW, false, NCH, 1>(a);
-    if (a.G <= 2) return launch_one<T, NARROW, false, NCH, 2>(a);
+    if (a.G <= 1) return launch_one<T, TQ, NARROW, false, NCH, 1>(a);
+    if (a.G <= 2) return launch_one<T, TQ, NARROW, false, NCH, 2>(a);
   }
-  if (a.G <= 4) return launch_one<T, NARROW, false, NCH, 4>(a);
+  if (a.G <= 4) return launch_one<T, TQ, NARROW, false, NCH, 4>(a);
   // G > 4 only at hd <= 128, where NCH is 1 (fast) or at most 4 (narrow)
   if constexpr (NCH == 1 || (NARROW && NCH <= 4)) {
-    if (a.G <= 8) return launch_one<T, NARROW, false, NCH, 8>(a);
+    if (a.G <= 8) return launch_one<T, TQ, NARROW, false, NCH, 8>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, typename TQ>
 int launch_t(const Args& a) {
   if (a.hd < 1 || a.hd > 256 || a.G < 1 || a.G > kMaxHeads ||
       (a.G > 4 && a.hd > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.narrow) {
-    if (a.hd <= 32) return launch_g<T, true, 1>(a);
-    if (a.hd <= 64) return launch_g<T, true, 2>(a);
-    if (a.hd <= 128) return launch_g<T, true, 4>(a);
-    return launch_g<T, true, 8>(a);
+    if (a.hd <= 32) return launch_g<T, TQ, true, 1>(a);
+    if (a.hd <= 64) return launch_g<T, TQ, true, 2>(a);
+    if (a.hd <= 128) return launch_g<T, TQ, true, 4>(a);
+    return launch_g<T, TQ, true, 8>(a);
   }
   if ((a.hd * static_cast<int>(sizeof(T))) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (sizeof(T) == 2) {   // bf16 on the tensor cores
     if (a.hd % 16 == 0) {
-      if (a.hd <= 128) return launch_one<T, false, true, 1, kMaxHeads>(a);
-      return launch_one<T, false, true, 2, kMaxHeads>(a);
+      if (a.hd <= 128) return launch_one<T, TQ, false, true, 1, kMaxHeads>(a);
+      return launch_one<T, TQ, false, true, 2, kMaxHeads>(a);
     }
   }
   const Geom gm = geometry(a.hd, sizeof(T), false);
-  if (gm.cpr <= gm.lanes) return launch_g<T, false, 1>(a);
-  if constexpr (sizeof(T) == 4) return launch_g<T, false, 2>(a);   // hd > 128
+  if (gm.cpr <= gm.lanes) return launch_g<T, TQ, false, 1>(a);
+  if constexpr (sizeof(T) == 4) return launch_g<T, TQ, false, 2>(a);   // hd > 128
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(const Args& a, int dtype) {
+  if (dtype == 0) return launch_t<float, float>(a);
+  if (dtype == 1) return launch_t<__nv_bfloat16, __nv_bfloat16>(a);
+  if (dtype == 2) return launch_t<__nv_bfloat16, float>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -761,7 +792,7 @@ int launch_t(const Args& a) {
 // then their accumulators [B, H, splits, hd]. `counters` is int32 [B, KV],
 // zero on entry and left zero (the merge tickets, which no launch on
 // another stream may share). `dtype` 0 = float32, 1 = bfloat16 (q, k, v and out
-// alike).
+// alike), 2 = float32 q and out over bfloat16 rings.
 // `cur_per_row` 1 reads cur_pos[b] for row b, 0 reads cur_pos[0] for every
 // row. `narrow` 1 takes the element-wise instantiation (rows whose bytes are
 // not a multiple of 16, or a ring base not 16-byte aligned). `tile`,
@@ -783,9 +814,7 @@ extern "C" int swa_decode_launch(const void* q, const void* k, const void* v,
                cur_per_row, B, W,     KV,    G,       hd,      window,
                splits, chunk, tile,   narrow, scale,
                static_cast<cudaStream_t>(stream), nullptr};
-  if (dtype == 0) return launch_t<float>(a);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(a, dtype);
 }
 
 // Blocks of the split kernel one SM holds at once for this geometry (the
@@ -797,7 +826,5 @@ extern "C" int swa_decode_blocks_per_sm(int G, int hd, int W, int chunk,
   Args a{};
   a.G = G; a.hd = hd; a.W = W; a.KV = 1; a.B = 1; a.splits = 1;
   a.chunk = chunk; a.tile = tile; a.narrow = narrow; a.blocks_per_sm = blocks;
-  if (dtype == 0) return launch_t<float>(a);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(a, dtype);
 }

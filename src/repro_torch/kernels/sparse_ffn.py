@@ -27,15 +27,25 @@ by the device of the input.
 
 Unfused (the reference's `sparse_ffn_segments_kernel`):
 
-    y = sum_s act(x @ W_up[seg_s]^T) [* (x @ W_gate[seg_s]^T)] @ W_down[seg_s]
+    y = sum_s rnd(act(x @ W_up[seg_s]^T) [* (x @ W_gate[seg_s]^T)]) @ W_down[seg_s]
 
 with float32 or bfloat16 [N, D] weight operands of any element strides (the
 model passes `w_up.T` views of its [d, d_ff] weights), a negative segment id
 as the zero padding segment and a repeated id counted twice, in float32.
-`sparse_ffn_segments_cuda` launches `csrc/sparse_ffn_segments.cu`;
-`sparse_ffn_segments_plain` gathers the segments' rows and does the
-products; `ops.sparse_ffn_segments` dispatches, with its own counters
-(`segments_counts`).
+`rnd` rounds the activation to the weights' dtype before the down product,
+as the TPU kernel's `act.astype(down_ref.dtype)` does: bf16 weights meet a
+bf16 activation there, float32 ones are unchanged.
+`sparse_ffn_segments_cuda` launches `csrc/sparse_ffn_segments.cu`: one
+launch of thread-block clusters, a cluster per segment at a time, its
+blocks splitting the up (and gate) sums over D and the down rows, the sums
+joined through distributed shared memory, the weights streamed by the copy
+engine (a 2-D tensor-map box an up stage, a bulk copy a down row;
+`segments_plan` cuts it; the note in the source says why). `sparse_ffn_segments_plain` gathers the
+segments' rows and does the products; `ops.sparse_ffn_segments`
+dispatches, with its own counters (`segments_counts`).
+`activation_tie_slack` bounds what the rounding can change between two
+orders of summation (a pre-activation within float32 error of a bf16
+rounding tie may round either way).
 """
 from __future__ import annotations
 
@@ -306,7 +316,52 @@ def sparse_ffn_segments_plain(
     act = apply_activation(xf @ gathered(w_up).T, activation)
     if w_gate is not None:
         act = act * (xf @ gathered(w_gate).T)
-    return act @ gathered(w_down)
+    # the TPU kernel's `act.astype(down_ref.dtype)`: bf16 weights meet a
+    # bf16 activation in the down product (a no-op for float32)
+    return act.to(w_down.dtype).float() @ gathered(w_down)
+
+
+# the window of `activation_tie_slack`: two float32 sums of D products of
+# O(1) size in two orders differ by about 2^-24 * sqrt(D) (4e-6 at
+# D = 4096), well inside it
+TIE_REL = 1e-5
+
+
+def activation_tie_slack(
+    x: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    seg_ids: torch.Tensor,
+    w_gate: Optional[torch.Tensor] = None,
+    *,
+    seg_size: int = 128,
+    activation: str = "relu",
+) -> torch.Tensor:
+    """[B, D] float64: the most that rounding the activation to the
+    weights' dtype can move each output of the unfused segment FFN when
+    the activation is summed in another order. An activation whose float64
+    value lies within TIE_REL * (|a| + 1) of a tie between two neighbours
+    of the weights' dtype may round to either; each such one adds its
+    neighbours' spacing times |its down row|. Below |a| of about 2.6e-3 a
+    bf16 step is narrower than the window, so every such activation counts,
+    each with its step (under 2e-5). Zero for float32 weights (no
+    rounding)."""
+    B, D = x.shape
+    if w_down.dtype == torch.float32:
+        return torch.zeros((B, D), dtype=torch.float64, device=x.device)
+    ids = seg_ids.long()
+    live = ids[ids >= 0]
+    rows = (live[:, None] * seg_size
+            + torch.arange(seg_size, device=ids.device)).reshape(-1)
+    xd = x.double()
+    a = apply_activation(xd @ w_up[rows].double().T, activation)
+    if w_gate is not None:
+        a = a * (xd @ w_gate[rows].double().T)
+    ulp = torch.finfo(w_down.dtype).eps * torch.exp2(
+        torch.floor(torch.log2(a.abs().clamp_min(1e-30))))
+    t = a / ulp
+    near = (t - t.floor() - 0.5).abs() * ulp <= TIE_REL * (a.abs() + 1)
+    return (near * ulp) @ w_down[rows].double().abs()
 
 
 def _check_segments(cond: bool, msg: str) -> None:
@@ -317,11 +372,89 @@ def _check_segments(cond: bool, msg: str) -> None:
 def _bind_segments(lib: ctypes.CDLL):
     fn = lib.sparse_ffn_segments_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+SEG_CLUSTER_SIZES = (16, 8, 4)
+MAX_SEG = 256           # the .cu's kMaxSeg
+MAX_LIVE = 1024         # segments a cluster takes at most (kMaxLive)
+
+
+class SegmentsPlan(NamedTuple):
+    """How one launch of `csrc/sparse_ffn_segments.cu` cuts the work."""
+    nb: int        # batch rows a group
+    groups: int    # groups of batch rows, run in turn
+    cluster: int   # blocks a cluster: each takes 1 / cluster of a segment
+    clusters: int  # clusters, each taking every clusters-th segment
+    blocks: int    # grid size
+
+
+@functools.lru_cache(maxsize=1024)
+def segments_plan(B: int, D: int, S: int, waves: Tuple[Tuple[int, int], ...]
+                  ) -> SegmentsPlan:
+    """The launch for S segments: for each (cluster size, clusters the card
+    holds at once) in `waves`, min(S, clusters) clusters, the busiest
+    taking ceil(S / clusters) segments, 1 / size of each a block; the size
+    whose busiest block takes the least, the larger size on a tie (fewer
+    partials for the last blocks to add)."""
+    nb = group_rows(B, D)
+    best = None
+    for c, n in waves:
+        n = min(S, n)
+        if n > 0:
+            key = (-(-S // n) / c, -c)
+            if best is None or key < best[0]:
+                best = (key, c, n)
+    if best is None:
+        raise RuntimeError("sparse_ffn_segments: no cluster of the kernel "
+                           "fits on the card")
+    _, c, n = best
+    return SegmentsPlan(nb=nb, groups=-(-B // nb), cluster=c, clusters=n,
+                        blocks=n * c)
+
+
+@functools.lru_cache(maxsize=None)
+def _segments_waves(index: int, D: int, seg: int, dtype: int, gated: bool,
+                    nb: int) -> Tuple[Tuple[int, int], ...]:
+    """((cluster size, clusters the card holds at once), ...) for the
+    instantiation a launch at these widths takes, for each size of
+    SEG_CLUSTER_SIZES that divides seg."""
+    fn = load_library("sparse_ffn_segments").sparse_ffn_segments_max_clusters
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    waves = []
+    with torch.cuda.device(index):
+        for c in SEG_CLUSTER_SIZES:
+            if seg % c:
+                continue
+            n = ctypes.c_int(0)
+            err = fn(D, seg, dtype, int(gated), nb, c, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"sparse_ffn_segments: occupancy query "
+                                   f"failed with CUDA error {err}")
+            waves.append((c, n.value))
+    return tuple(waves)
+
+
+def _unit_neuron_rows(w: torch.Tensor) -> bool:
+    """The copy engine's layout of up and gate (a tensor map): unit stride
+    along the neurons (a `.T` view of [D, N] storage), 16-byte aligned
+    rows."""
+    isz = w.element_size()
+    return (w.stride(0) == 1 and w.stride(1) * isz % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
+def _whole_rows(w: torch.Tensor) -> bool:
+    """The copy engine's layout of down (a bulk copy a row): unit stride
+    along D, rows of a 16-byte multiple, 16-byte aligned."""
+    isz = w.element_size()
+    return (w.stride(1) == 1 and w.stride(0) * isz % 16 == 0
+            and w.shape[1] * isz % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def sparse_ffn_segments_cuda(
@@ -336,10 +469,12 @@ def sparse_ffn_segments_cuda(
 ) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream. Validates
     device, dtype and shape and raises ValueError on what the kernel does
-    not take; raises RuntimeError if a launch fails. Weights are read in
-    place through their strides; x is taken as float32 (a bf16 x is
-    converted, a [B, D] copy). Outputs and scratch are allocated here;
-    nothing synchronises. A segment id >= N / seg_size traps on the device."""
+    not take; raises RuntimeError if the launch fails. Weights are read in
+    place through their strides (the model's layouts by the copy engine,
+    any other by the kernel's general path); x, float32 or bfloat16, is
+    read as it is. The output is allocated here, the scratch kept per stream;
+    nothing synchronises. A segment id >= N / seg_size traps on the
+    device."""
     dev = x.device
     tensors = {"x": x, "w_up": w_up, "w_down": w_down, "seg_ids": seg_ids}
     if w_gate is not None:
@@ -363,10 +498,14 @@ def sparse_ffn_segments_cuda(
                             tensors[name].shape == w_up.shape,
                             f"{name} must match w_up's dtype and shape")
     N = w_up.shape[0]
-    _check_segments(seg_size % 32 == 0 and seg_size > 0,
-                    f"seg_size={seg_size} must be a positive multiple of 32")
+    _check_segments(seg_size in (32, 64, 128, MAX_SEG),
+                    f"seg_size={seg_size} must be a power-of-two multiple "
+                    f"of 32 up to {MAX_SEG}")
     _check_segments(N % seg_size == 0,
                     f"N={N} is not a multiple of seg={seg_size}")
+    piece = 16 // w_up.element_size()       # weights a 16-byte piece
+    _check_segments(D % piece == 0 and D <= MAX_D,
+                    f"D={D} must be a multiple of {piece} up to {MAX_D}")
     _check_segments(seg_ids.dtype == torch.int32 and seg_ids.ndim == 1
                     and seg_ids.is_contiguous(),
                     "seg_ids must be contiguous int32 [S]")
@@ -374,24 +513,31 @@ def sparse_ffn_segments_cuda(
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if S == 0 or B == 0 or D == 0:
         return out.zero_()
-    xf = x.float().contiguous()
-    SK = S * seg_size
-    n_dc = -(-D // 256)
-    part = torch.empty((1 + (w_gate is not None), n_dc, B, SK),
-                       dtype=torch.float32, device=dev)
-    act = torch.empty((B, SK), dtype=torch.float32, device=dev)
-    pout = torch.empty((S, B, D), dtype=torch.float32, device=dev)
+    x = x.contiguous()
+    gated = w_gate is not None
+    dtype = SEGMENT_DTYPES[w_up.dtype]
+    p = segments_plan(B, D, S, _segments_waves(
+        dev.index or 0, D, seg_size, dtype, gated, group_rows(B, D)))
+    _check_segments(-(-S // p.clusters) <= MAX_LIVE,
+                    f"S={S} segments: more than {MAX_LIVE} a cluster")
+    up_fast = all(_unit_neuron_rows(w) for w in (w_up, w_gate)
+                  if w is not None)
     gate_strides = (0, 0) if w_gate is None else w_gate.stride()
     launch = _bind_segments(load_library("sparse_ffn_segments"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(xf.data_ptr(), w_up.data_ptr(),
+        part, tickets = _scratch_for(dev, stream,
+                                     p.groups * p.clusters * p.nb * D,
+                                     p.groups * p.cluster)
+        err = launch(x.data_ptr(), w_up.data_ptr(),
                      None if w_gate is None else w_gate.data_ptr(),
                      w_down.data_ptr(), seg_ids.data_ptr(), part.data_ptr(),
-                     act.data_ptr(), pout.data_ptr(), out.data_ptr(),
-                     B, D, N, S, seg_size, *w_up.stride(), *gate_strides,
-                     *w_down.stride(), SEGMENT_DTYPES[w_up.dtype],
-                     ACTIVATIONS[activation], stream)
+                     tickets.data_ptr(), out.data_ptr(), B, D, N, S,
+                     seg_size, *w_up.stride(), *gate_strides,
+                     *w_down.stride(), int(x.dtype == torch.bfloat16), dtype,
+                     ACTIVATIONS[activation], int(up_fast),
+                     int(_whole_rows(w_down)), p.nb, p.blocks, p.cluster,
+                     stream)
     if err != 0:
         raise RuntimeError(f"sparse_ffn_segments kernel launch failed with "
                            f"CUDA error {err}")

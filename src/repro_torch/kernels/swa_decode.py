@@ -9,8 +9,11 @@ the reference's layout [B, W, KV, hd]; slot w holds position pos[b, w]
 
 with `cur` the query's position: one scalar for the whole batch (the TPU
 kernel's form) or one per row (the continuous-batching server, where every
-slot sits at its own position). A row with no valid slot gives 0. Ring and
-query are float32 or bfloat16 (all three alike); the result has q's dtype.
+slot sits at its own position). A row with no valid slot gives 0. Rings
+are float32 or bfloat16; q has their dtype, or is float32 over bf16 rings
+(a bf16 model served offload: the offloaded FFN makes its residual stream
+float32). The result has q's dtype. Scores are float32 from the unrounded
+q and the ring's values upcast, as the reference's promotion does.
 
 `swa_decode_attention_cuda` launches the hand-written kernel in
 `csrc/swa_decode.cu` (see the note there for its bound and design) as
@@ -18,7 +21,10 @@ query are float32 or bfloat16 (all three alike); the result has q's dtype.
 the 16-byte or the narrow (one element a lane) load path;
 `swa_decode_attention_plain` is the reference oracle's math
 (`ref.swa_decode_ref`) in the same order: float32 scores, masked to -1e30,
-softmax, the value product, zeros for an empty row.
+softmax, the value product with P in float32, zeros for an empty row. On
+bf16 rings the kernel's tensor-core path rounds P to bf16 for P.V, as the
+TPU kernel does (`p.astype(v.dtype)`); the plain version keeps the
+oracle's float32 P, so the two agree to one bf16 rounding of P (2e-2).
 `repro_torch.kernels.ops.swa_decode_attention` dispatches between them by
 the device of the input.
 """
@@ -79,6 +85,12 @@ def swa_decode_attention_plain(
     # an all-masked row softmaxes to uniform weights: zero it
     out = torch.where(valid.any(-1)[:, None, None, None], out, 0.0)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _dtype_code(q: torch.Tensor, k_cache: torch.Tensor) -> int:
+    """The launch's `dtype`: the rings' (q alike), or 2 for a float32 q
+    over bf16 rings."""
+    return DTYPES[q.dtype] if q.dtype == k_cache.dtype else 2
 
 
 def _fail(msg: str) -> None:
@@ -151,7 +163,7 @@ def _plan_for(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, hd = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
-    return plan(B, KV, H // KV, hd, W, q.element_size(),
+    return plan(B, KV, H // KV, hd, W, k_cache.element_size(),
                 _sm_count(dev.index if dev.index is not None
                           else torch.cuda.current_device()),
                 aligned=k_cache.data_ptr() % 16 == 0
@@ -169,7 +181,7 @@ def blocks_per_sm(q: torch.Tensor, k_cache: torch.Tensor,
     n = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         err = fn(q.shape[1] // k_cache.shape[2], q.shape[2], k_cache.shape[1],
-                 p.chunk, p.tile, int(p.narrow), DTYPES[q.dtype],
+                 p.chunk, p.tile, int(p.narrow), _dtype_code(q, k_cache),
                  ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"swa_decode_blocks_per_sm failed with CUDA "
@@ -212,10 +224,13 @@ def swa_decode_attention_cuda(
     if not (k_cache.ndim == 4 and k_cache.shape[0] == B
             and k_cache.shape[-1] == hd):
         _fail(f"rings must be [B={B}, W, KV, hd={hd}]")
-    for t in (k_cache, v_cache):
-        if not (t.dtype == q.dtype and t.shape == k_cache.shape):
-            _fail(f"{'k_cache' if t is k_cache else 'v_cache'} must match "
-                  f"q's dtype and k_cache's shape")
+    if not (v_cache.dtype == k_cache.dtype
+            and v_cache.shape == k_cache.shape):
+        _fail("v_cache must match k_cache's dtype and shape")
+    if k_cache.dtype not in (q.dtype, torch.bfloat16) or \
+            q.dtype not in (k_cache.dtype, torch.float32):
+        _fail(f"rings must have q's dtype, or be bfloat16 under a float32 "
+              f"q; got q {q.dtype}, rings {k_cache.dtype}")
     _, W, KV, _ = k_cache.shape
     if not (pos.dtype == torch.int32 and tuple(pos.shape) == (B, W)):
         _fail(f"pos must be int32 [B={B}, W={W}]")
@@ -245,7 +260,7 @@ def swa_decode_attention_cuda(
                      _merge_tickets(B * KV, dev, stream).data_ptr(),
                      int(cur_pos.ndim == 1), B, W, KV, G, hd,
                      int(window), p.splits, p.chunk, p.tile, int(p.narrow),
-                     DTYPES[q.dtype], float(hd ** -0.5), stream)
+                     _dtype_code(q, k_cache), float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"swa_decode_attention kernel launch failed with "
                            f"CUDA error {err}")

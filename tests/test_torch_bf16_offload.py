@@ -47,8 +47,8 @@ LENS, NEW = (6, 9, 12), (5, 7, 4)
 TOL = 2e-2
 
 
-def _build(arch, seed, use_placement):
-    jcfg = jget_config(arch, reduced=True, **SMALL)
+def _build(arch, seed, use_placement, **extra):
+    jcfg = jget_config(arch, reduced=True, **SMALL, **extra)
     jmodel = jbuild_model(jcfg)
     jparams = jmodel.init_params(jax.random.PRNGKey(seed))
     with jax.disable_jit():
@@ -56,7 +56,7 @@ def _build(arch, seed, use_placement):
                                   rng=np.random.default_rng(0),
                                   calib_batch=(4, 32),
                                   use_placement=use_placement)
-    cfg = get_config(arch, reduced=True, **SMALL)
+    cfg = get_config(arch, reduced=True, **SMALL, **extra)
     model = build_model(cfg, device="cpu")
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                cfg, device="cpu")
@@ -129,12 +129,26 @@ def _prompts():
             for T in LENS]
 
 
-def _serve(server_cls, request_cls, model, params, **kw):
+def _serve(server_cls, request_cls, model, params, masks=None, **kw):
     """Serve the three requests on two slots; also record every decode
-    step's logit rows and active slots."""
+    step's logit rows and active slots, and into `masks` (a list) each
+    layer's oracle masks with the pre-activations they come from."""
     server = server_cls(model, params, max_slots=2, max_len=32, **kw)
     steps = []
     decode = server._decode_offload
+    if masks is not None:
+        true_masks = server._true_masks
+
+        def recorded_masks(dense_idx, h2, active):
+            out = true_masks(dense_idx, h2, active)
+            w = server._w_ups[dense_idx]
+            pre = (promoted_matmul(h2, w).float().numpy()
+                   if isinstance(h2, torch.Tensor)
+                   else np.asarray(h2 @ w, np.float32))
+            masks.append((np.array(out), pre))
+            return out
+
+        server._true_masks = recorded_masks
 
     def recorded(active):
         out = decode(active)
@@ -196,6 +210,52 @@ def test_bf16_offload_server_matches_reference(pair, request):
     for key in ("io_seconds_per_token", "cache_hit_rate", "mean_run_length",
                 "effective_bandwidth", "ops_per_token"):
         assert ts[key] == js[key], key
+
+
+def test_bf16_offload_swa_server_matches_reference():
+    """swa=True (rings of 8 slots, shorter than the 9- and 12-token prompts,
+    so rings wrap in prefill and in decode): from layer 1 on the query is
+    float32 over the bf16 rings, which the swa op takes (the reference's
+    `gqa_attend` promotes). Finish reasons, logits and tokens as in the
+    contiguous-cache test; the swa op's plain version ran on every decode
+    attention. The swa op computes the TPU kernel's attention, not
+    `gqa_attend`'s bf16 roundings (ROADMAP §3), so FFN inputs move
+    by bf16 roundings and an oracle mask bit whose pre-activation is that
+    close to 0 may flip: every differing bit must be such a near tie (as
+    for the calibration masks above), and per-uid I/O seconds are the
+    reference's exactly where no bit differs, else within 1%."""
+    jmodel, jparams, jruntime, model, params, runtime = _build(
+        "opt-350m", 0, True, sliding_window=8)
+    jmasks, masks = [], []
+    with jax.disable_jit():
+        jhandles, jsteps, _ = _serve(JInferenceServer, JRequest, jmodel,
+                                     jparams, masks=jmasks, mode="offload",
+                                     offload=jruntime, swa=True)
+    ops.reset_counts()
+    handles, steps, stats = _serve(InferenceServer, Request, model, params,
+                                   masks=masks, mode="offload",
+                                   offload=runtime, device="cpu", swa=True)
+    swa = ops.counts["swa_decode"]
+    assert (swa.launches, swa.plain_calls) == (
+        0, stats.decode_steps * model.cfg.n_layers)
+    assert max(LENS) > model.cfg.sliding_window
+    assert len(masks) == len(jmasks) > 0
+    flips = 0
+    for (m, _), (jm, jpre) in zip(masks, jmasks):
+        differ = m != jm
+        scale = float(np.abs(jpre).max())
+        assert np.all(np.abs(jpre[differ]) <= TOL * scale)
+        flips += int(differ.sum())
+    for h, jh, n in zip(handles, jhandles, NEW):
+        assert h.result.finish_reason == jh.result.finish_reason == "length"
+        assert len(h.result.tokens) == n
+        assert jh.result.io_seconds > 0
+        if flips == 0:
+            assert h.result.io_seconds == jh.result.io_seconds
+        else:
+            np.testing.assert_allclose(h.result.io_seconds,
+                                       jh.result.io_seconds, rtol=1e-2)
+    _assert_logits_then_tokens(steps, jsteps, handles, jhandles)
 
 
 def test_bf16_identity_layout_serves_bundles_like_reference():

@@ -17,12 +17,18 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.sparse_ffn import sparse_ffn_segments_plain
+from repro_torch.kernels.sparse_ffn import (_unit_neuron_rows, _whole_rows,
+                                            activation_tie_slack,
+                                            segments_plan,
+                                            sparse_ffn_segments_plain)
 
 torch.set_num_threads(1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# bf16 segment checks: the tie slack an output's tolerance takes is capped
+# here, so the tolerance stays within 2e-3 absolute of float32 order's
+TIE_SLACK_MAX = 2e-3
 
 
 def _tol(dtype):
@@ -147,3 +153,76 @@ def test_strided_views_equal_contiguous(seg):
     viewed = ops.sparse_ffn_segments(_t(x), up_view, down_view, ids,
                                      gate_view, **kw)
     torch.testing.assert_close(viewed, contiguous, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("activation,gated", [
+    ("relu", False), ("relu2", False), ("gelu", False), ("silu", False),
+    ("silu", True)])
+def test_bf16_rounds_the_activation_as_the_pallas_kernel(activation, gated):
+    """bf16 weights: the activation (after the gate product) is rounded to
+    bf16 before the down product, as the Pallas kernel's
+    `act.astype(down_ref.dtype)` (src/repro/kernels/sparse_ffn.py:77, :91).
+    The plain version then matches the kernel interpreted to float32
+    summation order: 1e-5 of the output's scale (measured 4.8e-7 at scale
+    3.9 for relu; a float32 activation misses by 6.6e-3), plus, where an
+    activation lies at a bf16 rounding tie (within float32 error), the
+    other rounding's effect (`activation_tie_slack`, capped at
+    TIE_SLACK_MAX; the silu case has such activations: JAX's silu and the
+    port's differ in the last bit)."""
+    B, D, N, seg = 4, 256, 512, 128
+    x, wu, wd, wg = _inputs(B * D, B, D, N, gated)
+    ids = [1, 2, 3]
+    kw = dict(seg_size=seg, activation=activation)
+    y = _port(x, wu, wd, ids, wg, dtype=torch.bfloat16, **kw)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (x, wu, wd)]
+    jwg = None if wg is None else jnp.asarray(wg, jnp.bfloat16)
+    yk = np.asarray(jops.sparse_ffn_segments(
+        *jargs, jnp.asarray(ids, jnp.int32), jwg, **kw), np.float32)
+    slack = activation_tie_slack(
+        _t(x, torch.bfloat16), _t(wu, torch.bfloat16), _t(wd, torch.bfloat16),
+        torch.tensor(ids), _t(wg, torch.bfloat16), **kw).numpy()
+    scale = float(np.abs(yk).max())
+    bad = np.abs(y - yk) > 1e-5 * scale + np.minimum(slack, TIE_SLACK_MAX)
+    assert not bad.any(), (int(bad.sum()), float(np.abs(y - yk).max()))
+
+
+def test_segments_plan_keeps_the_most_blocks_busy():
+    """The Hopper launch plan (pure Python): per cluster size, as many
+    clusters as segments or as the card holds; the size whose busiest
+    block takes the least share of the segments wins, the larger one on a
+    tie."""
+    # serve_sparse opt-350m: 4 segments, a 16-block cluster each
+    p = segments_plan(4, 1024, 4, ((16, 8), (8, 16), (4, 33)))
+    assert (p.nb, p.groups, p.cluster, p.clusters, p.blocks) == (
+        4, 1, 16, 4, 64)
+    # mistral-7b: 16 clusters of 8 (a segment each) beat 7 of 16 (three
+    # segments on the busiest, 3 / 16 > 1 / 8) ...
+    p = segments_plan(4, 4096, 16, ((16, 7), (8, 16), (4, 33)))
+    assert (p.cluster, p.clusters, p.blocks) == (8, 16, 128)
+    # ... and 7 of 16 (3 / 16) beat 15 of 8 (two on the busiest, 2 / 8)
+    p = segments_plan(4, 4096, 16, ((16, 7), (8, 15), (4, 30)))
+    assert (p.cluster, p.clusters, p.blocks) == (16, 7, 112)
+    p = segments_plan(4, 4096, 16, ((16, 8), (8, 16)))
+    assert (p.cluster, p.clusters) == (16, 8)
+    # 11 rows at D = 520 run as groups of 8; a size the card cannot hold
+    p = segments_plan(11, 520, 6, ((16, 0), (8, 16), (4, 33)))
+    assert (p.nb, p.groups, p.cluster, p.clusters) == (8, 2, 8, 6)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        segments_plan(4, 1024, 4, ((16, 0),))
+
+
+def test_model_layouts_take_the_copy_engine_path():
+    """The model's `w.T` views of [d, d_ff] up / gate weights and its
+    [d_ff, d] down weight take the kernel's copy engine (tensor-map boxes,
+    bulk copies); rows, column-strided or misaligned operands its general
+    path."""
+    for dt in (torch.float32, torch.bfloat16):
+        up = torch.zeros(1024, 4096, dtype=dt).T
+        down = torch.zeros(4096, 1024, dtype=dt)
+        assert _unit_neuron_rows(up) and _whole_rows(down)
+        assert not _unit_neuron_rows(up.contiguous())
+        assert not _whole_rows(down.T.contiguous().T)
+        flat = torch.zeros(4096 * 1024 + 1, dtype=dt)
+        assert not _unit_neuron_rows(flat[1:].view(1024, 4096).T)
+        assert not _whole_rows(flat[1:].view(4096, 1024))
+    assert not _whole_rows(torch.zeros(256, 36, dtype=torch.bfloat16))

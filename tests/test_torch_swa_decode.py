@@ -19,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import ops
 from repro_torch.kernels import swa_decode
 from repro_torch.kernels.swa_decode import plan, swa_decode_attention_plain
@@ -149,6 +150,41 @@ def test_per_row_cur_matches_reference_per_row(window):
                         window, jnp.float32)
         np.testing.assert_allclose(got[b:b + 1], np.asarray(want),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,W,window", [(2, 8, 2, 64, 256, 100),
+                                                 (3, 16, 16, 64, 128, 128)])
+def test_f32_query_over_bf16_rings_matches_gqa_attend(B, H, KV, hd, W,
+                                                      window):
+    """A bf16 model served offload attends with a float32 query (its
+    residual stream is float32 after the first offloaded FFN) over its
+    bf16 rings. The plain version takes them and gives float32; the
+    reference's model (`attend_swa_cache` -> `gqa_attend`) promotes: float32
+    scores from the unrounded query, probabilities rounded to bf16, a bf16
+    product. Rows at their own positions, one wrapped; 2e-2, the bf16
+    tolerance of tests/test_kernels.py:10 (the reference's two roundings)."""
+    rng = np.random.default_rng(B * W)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = np.asarray(rng.standard_normal((B, W, KV, hd)), jnp.bfloat16)
+    v = np.asarray(rng.standard_normal((B, W, KV, hd)), jnp.bfloat16)
+    curs = [W + W // 3, 40, 2 * W - 1][:B]
+    pos = np.full((B, W), -1, np.int32)
+    for b, c in enumerate(curs):
+        for p in range(max(0, c - W + 1), c + 1):
+            pos[b, p % W] = p
+    bf = lambda a: torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)  # noqa: E731
+    got = swa_decode_attention_plain(
+        _torch(q), bf(k), bf(v), _torch(pos, torch.int32),
+        torch.tensor(curs, dtype=torch.int32), window=window)
+    assert got.dtype == torch.float32
+    want = jlayers.gqa_attend(jnp.asarray(q)[:, None], jnp.asarray(k),
+                              jnp.asarray(v), jnp.asarray(curs)[:, None],
+                              jnp.asarray(pos), k_valid=jnp.asarray(pos >= 0),
+                              causal=True, window=window)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.numpy().reshape(B, H * hd),
+                               np.asarray(want, np.float32)[:, 0],
+                               rtol=2e-2, atol=2e-2)
 
 
 # every geometry the kernel takes: hd <= 256, and G <= 4, or G <= 8 with
