@@ -72,9 +72,13 @@ Phases, in order (any failure raises and the script exits non-zero):
      shape for opt-350m, (1000, 4100), ragged, and (4096, 14336),
      mistral-7b-relu's d_ff: `torch.equal` in every case (the counts are
      exact), equal to host numpy for the first two, the same bits over two
-     launches; event ms, profiler device ms cold / warm, plain ms, the
-     bound (bytes over 3.35 TB/s vs int8 operations over 1,979 TOPS), and
-     as yardsticks `torch.mm` on float32 masks (TF32 off) and
+     launches; the same in accumulate mode (into a matrix of counts: equal
+     to it plus the plain product). Event ms, profiler device ms cold /
+     warm (the kernels the source's `__global__`s name), plain ms, the
+     bound (mask and output bytes over 3.35 TB/s vs the triangle's
+     N (N + 1) T int8 operations over 1,979 TOPS), the accumulate mode's
+     ms and bound (the output also read) beside a fresh product then
+     `+=`, and as yardsticks `torch.mm` on float32 masks (TF32 off) and
      `torch._int_mm` on int8 masks where the shape allows.
   9. pack: the offline stage on the slice's model: `build_pack` (512
      calibration tokens as 8 x 64 from the seed, float32, format v2) into a
@@ -154,6 +158,12 @@ Phases, in order (any failure raises and the script exits non-zero):
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
 Imports torch, numpy and the port only.
+
+    python3 chip_smoke.py --coact-interleaved PARENT_TREE
+
+instead times phase 8's route (fresh, fresh then `+=`, and the accumulate
+mode where the tree has it) of another checkout of the repository and of
+this one in turns, parent / this / this / parent, a process each.
 """
 from __future__ import annotations
 
@@ -185,7 +195,6 @@ PAGED_KERNELS = ("paged_split_kernel",)
 INT8_OPS = 1979e12             # H100 SXM data sheet, int8 tensor cores, dense
 COACT_SOURCE = "src/repro_torch/kernels/csrc/coact.cu"
 COACT_REPLACES = "src/repro/kernels/coact.py:39"
-COACT_KERNELS = ("coact_transpose_kernel", "coact_mma_kernel")
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_decode.cu"
 SWA_REPLACES = "src/repro/kernels/swa_decode.py:103"
 SWA_KERNELS = ("swa_split_kernel",)
@@ -1191,14 +1200,16 @@ COACT_CASES = [
     ("mistral7b_4096x14336", 4096, 14336, 0.5, False),
 ]
 REHEARSAL_COACT = [(64, 128), (100, 130), (256, 512)]
+ADD_KERNELS = ("Functor_add",)   # PyTorch's `pair += fresh` on the card
 
 
-def coact_bound(T, N):
-    """(bound ms, what bounds it): the mask bytes read once and the f32
-    [N, N] output written once over the HBM rate, vs 2·N²·T int8
-    operations over the int8 tensor rate."""
-    t_bytes = (T * N + 4 * N * N) / HBM_BYTES_PER_S
-    t_ops = 2 * N * N * T / INT8_OPS
+def coact_bound(T, N, accumulate: bool = False):
+    """(bound ms, what bounds it) of MᵀM's least work: the mask bytes read
+    once and the f32 [N, N] output written once (accumulate mode: also read
+    once) over the HBM rate, vs the triangle's N·(N + 1)·T int8 operations
+    (the other triangle is the same numbers) over the int8 tensor rate."""
+    t_bytes = (T * N + (8 if accumulate else 4) * N * N) / HBM_BYTES_PER_S
+    t_ops = N * (N + 1) * T / INT8_OPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1222,55 +1233,147 @@ def library_yardsticks(m, flush):
     return mm_ms, int_mm_ms
 
 
+def coact_kernel_names(root: Path):
+    """The `__global__` functions of `root`'s coact.cu: the kernels whose
+    device time a coact call is (a parent's tree names its own)."""
+    import re
+    src = (root / COACT_SOURCE).read_text()
+    return tuple(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                            r"\([^)]*\)\s+)?(\w+)", src))
+
+
+def coact_timings(m, flush, names, accumulate: bool) -> dict:
+    """Event ms and profiler device ms (cold L2; fresh also warm) of the
+    coact route on masks m: a fresh product; the same then `pair += it`
+    (two calls, the stats' update before the accumulate mode) and PyTorch's
+    add alone; with `accumulate`, the accumulate mode into `pair`. The pair
+    matrix's values grow run to run; nothing here checks them."""
+    import torch
+    from repro_torch.kernels.ops import coact_accumulate as coact
+    N = m.shape[1]
+    pair = torch.zeros((N, N), dtype=torch.float32, device=m.device)
+    prod = coact(m)
+
+    def fresh():
+        return coact(m)
+
+    def fresh_plus_add():
+        pair.add_(coact(m))
+
+    row = dict(
+        ms=time_ms(fresh, flush),
+        device_cold_ms=kernel_device_ms(fresh, flush, cold=True, names=names),
+        device_cold_ms_by_kernel={n: kernel_device_ms(
+            fresh, flush, cold=True, names=(n,)) for n in names},
+        device_warm_ms=kernel_device_ms(fresh, flush, cold=False,
+                                        names=names),
+        fresh_plus_add_ms=time_ms(fresh_plus_add, flush),
+        fresh_plus_add_device_cold_ms=kernel_device_ms(
+            fresh_plus_add, flush, cold=True, names=names + ADD_KERNELS),
+        add_device_cold_ms=kernel_device_ms(
+            lambda: pair.add_(prod), flush, cold=True, names=ADD_KERNELS))
+    if accumulate:
+        def acc():
+            return coact(m, accumulate_into=pair)
+        row.update(acc_ms=time_ms(acc, flush),
+                   acc_device_cold_ms=kernel_device_ms(acc, flush, cold=True,
+                                                       names=names))
+    return row
+
+
 def coact_kernel_phase(dev, seed: int, reduced: bool) -> dict:
+    """Each case: the kernel against its plain version, fresh and in
+    accumulate mode (into a pair matrix that already holds counts), both
+    `torch.equal` and the same bits on a second launch; then its times
+    beside the bound and the library calls."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.kernels.coact import coact_accumulate_plain
+    from repro_torch.kernels.ops import coact_accumulate as coact
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    names = coact_kernel_names(ROOT)
     cases = []
     for i, (name, T, N, density, host) in enumerate(COACT_CASES):
         if reduced:
             T, N = REHEARSAL_COACT[i]
         m = torch.rand((T, N), generator=gen, device=dev) < density
-        out = ops.coact_accumulate(m)
+        out = coact(m)
         ref = coact_accumulate_plain(m)
         sync(dev)
         assert out.dtype == torch.float32 and tuple(out.shape) == (N, N), name
         exact = bool(torch.equal(out, ref))
-        same = bool(torch.equal(out, ops.coact_accumulate(m)))
+        same = bool(torch.equal(out, coact(m)))
         host_equal = None
         if host:
             mn = m.cpu().numpy().astype(np.float32)
             host_equal = bool(np.array_equal(out.cpu().numpy(), mn.T @ mn))
         err = float((out - ref).abs().max())
-        del ref
-
-        def kernel():
-            return ops.coact_accumulate(m)
-
+        del out
+        start = torch.randint(0, 1 << 16, (N, N), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.float32)
+        acc = coact(m, accumulate_into=start.clone())
+        acc_exact = bool(torch.equal(acc, start + ref))
+        acc_same = bool(torch.equal(acc, coact(m, accumulate_into=start)))
+        del ref, acc, start
         bound_ms, bound_by = coact_bound(T, N)
+        acc_bound_ms, acc_bound_by = coact_bound(T, N, accumulate=True)
         mm_ms, int_mm_ms = library_yardsticks(m, flush)
         case = dict(
             case=name, T=T, N=N, density=density, max_abs_err=err,
             equal=exact, deterministic=same, equal_host_numpy=host_equal,
-            ms=time_ms(kernel, flush),
-            device_cold_ms=kernel_device_ms(kernel, flush, cold=True,
-                                            names=COACT_KERNELS),
-            device_warm_ms=kernel_device_ms(kernel, flush, cold=False,
-                                            names=COACT_KERNELS),
+            accumulate_equal=acc_exact, accumulate_deterministic=acc_same,
+            **coact_timings(m, flush, names, accumulate=True),
             plain_ms=time_ms(lambda: coact_accumulate_plain(m), flush),
             bound_ms=bound_ms, bound_by=bound_by,
+            acc_bound_ms=acc_bound_ms, acc_bound_by=acc_bound_by,
             library_mm_f32_ms=mm_ms, library_int_mm_ms=int_mm_ms)
         emit({"coact_kernel_case": case})
         assert exact, f"{name}: kernel counts differ from the plain version"
         assert same, f"{name}: two launches gave different bits"
         assert host_equal in (None, True), f"{name}: differs from host numpy"
+        assert acc_exact, f"{name}: accumulate mode differs from fresh + add"
+        assert acc_same, f"{name}: two accumulate launches gave other bits"
         cases.append(case)
-        del out, m
+        del m
     del flush
     return {"cases": cases}
+
+
+def coact_tree_times(tree: Path, seed: int) -> None:
+    """One tree's coact route timed at every case (its own `repro_torch`
+    on the path, the kernels it names): the child process of
+    `coact_interleaved`. Prints one `coact_tree` line a case."""
+    import inspect
+    import torch
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels.ops import coact_accumulate
+    dev = torch.device("cuda", 0)
+    accumulate = "accumulate_into" in inspect.signature(
+        coact_accumulate).parameters
+    names = coact_kernel_names(tree)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    for name, T, N, density, _ in COACT_CASES:
+        m = torch.rand((T, N), generator=gen, device=dev) < density
+        emit({"coact_tree": {"tree": str(tree), "case": name, "kernels": names,
+                             **coact_timings(m, flush, names, accumulate)}})
+        del m
+
+
+def coact_interleaved(parent: Path, seed: int) -> int:
+    """The coact route of `parent`'s tree and of this one timed in turns,
+    parent / this / this / parent, each a process of its own on the card
+    (`--coact-tree`); the parent's accumulate is its fresh product then
+    `+=`. Prints the `nvidia-smi` line and each run's lines."""
+    print(nvidia_smi(), flush=True)
+    for tree in (parent, ROOT, ROOT, parent):
+        done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--seed", str(seed), "--coact-tree",
+                               str(tree.resolve())], timeout=900)
+        if done.returncode != 0:
+            return done.returncode
+    return 0
 
 
 # -- swa kernel phase ----------------------------------------------------------------
@@ -2274,7 +2377,17 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, help="requests" + rehearsal_only)
     ap.add_argument("--prompt-len", type=int, help="prompt length" + rehearsal_only)
     ap.add_argument("--new-tokens", type=int, help="new tokens" + rehearsal_only)
+    ap.add_argument("--coact-interleaved", metavar="PARENT", type=Path,
+                    help="instead of the smoke run: time the coact route "
+                         "of the tree PARENT and of this one, parent / this "
+                         "/ this / parent, on the card")
+    ap.add_argument("--coact-tree", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.coact_tree:               # one turn of --coact-interleaved
+        coact_tree_times(args.coact_tree, args.seed)
+        return 0
+    if args.coact_interleaved:
+        return coact_interleaved(args.coact_interleaved, args.seed)
     sizes = (args.requests, args.prompt_len, args.new_tokens)
     if not args.cpu_rehearsal and any(v is not None for v in sizes):
         ap.error("--requests, --prompt-len and --new-tokens apply only with "
@@ -2341,6 +2454,7 @@ def main(argv=None) -> int:
     paged_bf16 = next(c for c in pkern["cases"]
                       if c["case"] == "mistral7b_long_bf16")
     coact_case = ckern["cases"][0]
+    coact_mistral = ckern["cases"][-1]
     swa_case = skern["cases"][0]
     swa_bf16 = next(c for c in skern["cases"] if c["case"] == "mistral7b_bf16")
     seg_case = gkern["cases"][0]
@@ -2391,7 +2505,15 @@ def main(argv=None) -> int:
         "bound_ms": coact_case["bound_ms"],
         "bound_by": coact_case["bound_by"],
         "library_ms": coact_case["library_mm_f32_ms"],
-        "library_int_mm_ms": coact_case["library_int_mm_ms"]}, {
+        "library_int_mm_ms": coact_case["library_int_mm_ms"],
+        # the stats' update (A += MᵀM): accumulate mode vs fresh + `+=`
+        "accumulate": {k: coact_case[k] for k in (
+            "acc_ms", "acc_device_cold_ms", "acc_bound_ms", "acc_bound_by",
+            "fresh_plus_add_ms", "fresh_plus_add_device_cold_ms")},
+        # mistral-7b-relu's d_ff at 4096 tokens beside it
+        "mistral7b_4096x14336": {k: coact_mistral[k] for k in (
+            "ms", "device_cold_ms", "device_warm_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_mm_f32_ms", "library_int_mm_ms")}}, {
         # the swa serving shape's float32 case (opt-350m heads, W = 8192,
         # rows wrapped / short / empty); every case's line is above
         "name": "swa_decode", "route": "cuda",

@@ -26,13 +26,14 @@ class CoActivationStats:
     block on `device` (default cuda; the CPU only when asked for).
 
     `pair_counts` is a float32 [n, n] tensor on the device and `counts` an
-    int64 [n] tensor; each `update` adds the block's MᵀM from
-    `ops.coact_accumulate` (the CUDA kernel on the card, its plain version on
-    the CPU) in place, the order of the reference's `+=`. The counts are
-    exact integers, so the float32 bits equal the reference's numpy
-    accumulation while each entry stays below 2^24 co-activations (the
-    reference's float32 buffer has the same limit). Masks given on the host
-    are copied to the device once for the count.
+    int64 [n] tensor; each `update` adds the block's MᵀM into `pair_counts`
+    in place through `ops.coact_accumulate(..., accumulate_into=)` (on the
+    card the kernel adds each tile into it, on the CPU the plain version
+    `add_`s the product), the float adds of the reference's `+=`. The
+    counts are exact integers, so the float32 bits equal the reference's
+    numpy accumulation while each entry stays below 2^24 co-activations
+    (the reference's float32 buffer has the same limit). Masks given on
+    the host are copied to the device once for the count.
 
     The probabilities and distances (`p_single`, `p_pair`,
     `distance_matrix`, `activation_rate`) come back to the host as numpy,
@@ -72,8 +73,9 @@ class CoActivationStats:
         tensor on this stats' device)."""
         m = self._as_masks(masks)
         self.counts += m.to(torch.int64).sum(dim=0)
-        # A += MᵀM — the offline hot spot, through the coact kernel on CUDA
-        self.pair_counts += ops.coact_accumulate(m)
+        # A += MᵀM — the offline hot spot; on CUDA the coact kernel adds its
+        # tiles into the pair matrix (no [n, n] temporary)
+        ops.coact_accumulate(m, accumulate_into=self.pair_counts)
         self.n_tokens += m.shape[0]
 
     # -- host views -----------------------------------------------------------

@@ -89,15 +89,19 @@ def paged_decode_attention(
     raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
 
 
-def coact_accumulate(masks: torch.Tensor) -> torch.Tensor:   # [T, N]
+def coact_accumulate(masks: torch.Tensor,          # [T, N]
+                     accumulate_into: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Co-activation counts MᵀM of a [T, N] mask block, a fresh f32 [N, N],
-    exact (each entry below 2^24). On CUDA the mask must be bool or uint8;
-    the plain version on the CPU also takes 0/1 floats."""
+    exact (each entry below 2^24); with `accumulate_into` (a contiguous f32
+    [N, N] on the masks' device) they are added into it in place (`A +=
+    MᵀM`) and it is returned. On CUDA the mask must be bool or uint8; the
+    plain version on the CPU also takes 0/1 floats."""
     if masks.device.type == "cpu":
         coact.counts.plain_calls += 1
-        return coact.coact_accumulate_plain(masks)
+        return coact.coact_accumulate_plain(masks, accumulate_into)
     if masks.device.type == "cuda":
-        return coact.coact_accumulate_cuda(masks)
+        return coact.coact_accumulate_cuda(masks, accumulate_into)
     raise ValueError(f"coact_accumulate: unsupported device {masks.device}")
 
 

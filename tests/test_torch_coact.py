@@ -4,7 +4,8 @@ version against the reference's Pallas kernel (interpret mode, as
 port's `CoActivationStats` against the reference's.
 
 Tolerance: none. The counts are small integers, so every route must give
-the same float32 bits (`assert_array_equal`, `torch.equal`).
+the same float32 bits (`assert_array_equal`, `torch.equal`), in
+accumulate mode too (`A += MᵀM` into a matrix that already holds counts).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +17,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import coactivation as tcoact
 from repro_torch.kernels import ops
-from repro_torch.kernels.coact import (coact_accumulate_cuda,
-                                       coact_accumulate_plain)
+from repro_torch.kernels.coact import (BYTE_VALUE_TOKENS, INT32_MAX,
+                                       coact_accumulate_cuda,
+                                       coact_accumulate_plain, int32_sums_fit)
 
 torch.set_num_threads(1)
 
@@ -136,3 +138,93 @@ def test_cuda_wrapper_rejects_rank_dtype_and_device(bad, match):
 def test_plain_rejects_bad_rank():
     with pytest.raises(ValueError, match=r"\[T, N\]"):
         ops.coact_accumulate(torch.zeros((3,), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("T,N", SHAPES)
+def test_plain_accumulate_mode_equals_pallas_plus_add(T, N, dtype):
+    """`accumulate_into=A`: the block's counts are added into A in place and
+    A is returned; the bits are those of A plus the Pallas kernel's MᵀM (the
+    reference's `pair_counts += m.T @ m`)."""
+    m = _masks(T, N, dtype)
+    start = np.random.default_rng(T + N).integers(
+        0, 1 << 16, (N, N)).astype(np.float32)
+    into = torch.from_numpy(start.copy())
+    ops.reset_counts()
+    got = ops.coact_accumulate(torch.from_numpy(m), accumulate_into=into)
+    assert got is into
+    assert ops.counts["coact_accumulate"].plain_calls == 1
+    pallas = np.asarray(jops.coact_accumulate(jnp.asarray(m), tile_n=128,
+                                              tile_t=64, interpret=True))
+    want = start.copy()
+    want += pallas
+    np.testing.assert_array_equal(into.numpy(), want)
+
+
+def test_plain_accumulate_empty_block_leaves_counts():
+    start = torch.arange(36, dtype=torch.float32).reshape(6, 6)
+    into = start.clone()
+    m = torch.zeros((0, 6), dtype=torch.bool)
+    assert coact_accumulate_plain(m, accumulate_into=into) is into
+    assert torch.equal(into, start)
+
+
+@pytest.mark.parametrize("into,match", [
+    (torch.zeros((8, 8), dtype=torch.float64), "float32"),
+    (torch.zeros((8, 7)), "float32"),
+    (torch.zeros((8, 16))[:, ::2], "contiguous"),
+])
+def test_accumulate_into_is_checked(into, match):
+    """A pair matrix of another dtype, shape or layout is refused (the CUDA
+    wrapper runs the same check; `tests/test_torch_cuda.py` holds it)."""
+    m = torch.zeros((4, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match=match):
+        coact_accumulate_plain(m, accumulate_into=into)
+
+
+def test_accumulate_into_must_share_the_masks_device():
+    m = torch.zeros((4, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="is on"):
+        coact_accumulate_plain(m, accumulate_into=torch.zeros(
+            (8, 8), device="meta"))
+
+
+@pytest.mark.parametrize("T,vmax,fits", [
+    (1, 255, True), (33_025, 255, True), (33_026, 255, False),
+    (33_026, 254, True), (BYTE_VALUE_TOKENS, 255, False),
+    ((1 << 24) - 1, 1, True), (INT32_MAX, 1, True), (INT32_MAX + 1, 1, False),
+    (8_421_504, 16, False), (8_388_607, 16, True), (10, 0, True)])
+def test_int32_sums_fit(T, vmax, fits):
+    """The kernel's int32 sums hold T·vmax² up to 2^31 − 1: bytes of 255
+    from T = 33,026 on could wrap (the wrapper then raises), 0/1 masks
+    never below the 2^24-token limit."""
+    assert BYTE_VALUE_TOKENS == 33_026
+    assert int32_sums_fit(T, vmax) is fits
+    assert (T * vmax * vmax <= (1 << 31) - 1) is fits
+
+
+def test_stats_update_adds_in_place_bit_identical_to_reference():
+    """Many updates through the accumulate mode (bool, 0/1 uint8 and byte
+    values, an empty block, ragged T): the pair matrix is the same tensor
+    throughout and its bits equal the reference's after every update."""
+    rng = np.random.default_rng(11)
+    n = 70
+    js, ts = jcoact.CoActivationStats(n), tcoact.CoActivationStats(n, "cpu")
+    pair = ts.pair_counts
+    ptr = pair.data_ptr()
+    ops.reset_counts()
+    for i, T in enumerate((33, 0, 128, 5, 64, 1, 200, 17)):
+        if i % 3 == 2:
+            b = rng.integers(0, 256, (T, n)).astype(np.uint8)   # values
+        else:
+            b = rng.random((T, n)) < 0.2 + 0.05 * i
+            if i % 3 == 1:
+                b = b.astype(np.uint8)
+        js.update(b)
+        ts.update(b)
+        assert ts.pair_counts is pair and pair.data_ptr() == ptr
+        np.testing.assert_array_equal(ts.pair_counts_numpy(), js.pair_counts)
+        np.testing.assert_array_equal(ts.counts_numpy(), js.counts)
+    assert ops.counts["coact_accumulate"].plain_calls == 8
+    np.testing.assert_array_equal(ts.distance_matrix(), js.distance_matrix())
+    assert ts.n_tokens == js.n_tokens

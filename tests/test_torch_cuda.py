@@ -446,8 +446,16 @@ def _coact_masks(dev, T, N, dtype, seed=0):
     return torch.from_numpy(m).to(dev)
 
 
-@pytest.mark.parametrize("T,N", [(1, 1), (17, 50), (64, 128), (100, 300),
-                                 (256, 256), (1000, 4100)])
+# N = 1; ragged N whose rows the copy engine stores (N % 4 == 0) and N
+# whose rows the threads store (N % 4 != 0); tile multiples; one diagonal
+# tile (N <= 128); T above the kernel's ring of 3 x 128 tokens, up to 17
+# ring stages a tile
+COACT_SHAPES = [(1, 1), (17, 50), (64, 128), (100, 300), (256, 256),
+                (1000, 4100), (400, 128), (513, 384), (129, 131), (300, 4),
+                (2049, 1100), (2100, 259), (2048, 256)]
+
+
+@pytest.mark.parametrize("T,N", COACT_SHAPES)
 @pytest.mark.parametrize("dtype", ["bool", "uint8"])
 def test_coact_kernel_equals_plain_on_card(dev, T, N, dtype):
     """Exact: `torch.equal` with the plain version (float32 products of 0/1
@@ -483,6 +491,83 @@ def test_coact_kernel_takes_views_and_byte_values(dev):
                        torch.zeros((70, 70), device=dev))
 
 
+@pytest.mark.parametrize("T,N", [(17, 50), (513, 384), (129, 131),
+                                 (1000, 4100), (2049, 1100), (2100, 259)])
+def test_coact_accumulate_mode_on_card(dev, T, N):
+    """`accumulate_into`: the kernel adds into a pair matrix that already
+    holds counts (stored by the copy engine's reduce-add where N % 4 == 0,
+    by the threads elsewhere) and returns it: equal to the fresh product
+    plus `+=`, the same bits from the same start twice, one launch."""
+    m = _coact_masks(dev, T, N, "bool", seed=3)
+    start = torch.from_numpy(np.random.default_rng(T + N).integers(
+        0, 5000, (N, N)).astype(np.float32)).to(dev)
+    want = start.clone()
+    want += ops.coact_accumulate(m)
+    pair = start.clone()
+    ops.reset_counts()
+    got = ops.coact_accumulate(m, accumulate_into=pair)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (1, 0)
+    assert got is pair
+    torch.cuda.synchronize()
+    assert torch.equal(pair, want)
+    again = start.clone()
+    ops.coact_accumulate(m, accumulate_into=again)
+    assert torch.equal(again, pair)
+
+
+def test_coact_stats_update_adds_in_place_on_card(dev):
+    """`CoActivationStats.update` goes through the accumulate mode: its pair
+    matrix stays the same tensor, one launch an update and no plain call,
+    and after several blocks (byte values, ragged T) it equals the fresh
+    products summed with `+=` and the CPU stats' bits."""
+    from repro_torch.core.coactivation import CoActivationStats
+    n = 260
+    blocks = [_coact_masks(dev, T, n, d, seed=i) for i, (T, d) in enumerate(
+        ((300, "bool"), (1, "uint8"), (129, "u8_values"), (64, "bool")))]
+    stats = CoActivationStats(n, device=dev)
+    cpu = CoActivationStats(n, device="cpu")
+    ptr = stats.pair_counts.data_ptr()
+    want = torch.zeros((n, n), device=dev)
+    ops.reset_counts()
+    for b in blocks:
+        stats.update(b)
+        cpu.update(b.cpu())
+        want += ops.coact_accumulate(b)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (2 * len(blocks),
+                                                   len(blocks))
+    assert stats.pair_counts.data_ptr() == ptr
+    torch.cuda.synchronize()
+    assert torch.equal(stats.pair_counts, want)
+    assert torch.equal(stats.pair_counts.cpu(), cpu.pair_counts)
+
+
+def test_coact_byte_values_that_would_overflow_int32(dev):
+    """Bytes of 255: the kernel's int32 sums hold T·255² up to T = 33,025
+    (then every entry is that count, rounded once to float32); from 33,026
+    tokens they could wrap, so the wrapper raises instead of returning a
+    wrapped sum. 0/1 uint8 masks at that T still launch."""
+    from repro_torch.kernels.coact import (BYTE_VALUE_TOKENS,
+                                           coact_accumulate_cuda)
+    assert BYTE_VALUE_TOKENS == 33026
+    full = torch.full((BYTE_VALUE_TOKENS, 8), 255, dtype=torch.uint8,
+                      device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        coact_accumulate_cuda(full)
+    with pytest.raises(ValueError, match="int32"):
+        coact_accumulate_cuda(full, accumulate_into=torch.zeros(
+            (8, 8), device=dev))
+    below = coact_accumulate_cuda(full[1:])
+    torch.cuda.synchronize()
+    exact = np.float32((BYTE_VALUE_TOKENS - 1) * 255 * 255)
+    assert torch.equal(below, torch.full((8, 8), float(exact), device=dev))
+    ones = (full > 254).to(torch.uint8)
+    assert torch.equal(coact_accumulate_cuda(ones),
+                       torch.full((8, 8), float(BYTE_VALUE_TOKENS),
+                                  device=dev))
+
+
 def test_coact_kernel_rejects_what_it_does_not_take(dev):
     from repro_torch.kernels.coact import coact_accumulate_cuda
     m = _coact_masks(dev, 8, 16, "bool")
@@ -492,6 +577,14 @@ def test_coact_kernel_rejects_what_it_does_not_take(dev):
         coact_accumulate_cuda(m[None])
     with pytest.raises(ValueError, match="CUDA device"):
         coact_accumulate_cuda(m.cpu())
+    for into, match in ((torch.zeros((16, 16), device=dev,
+                                     dtype=torch.float64), "float32"),
+                        (torch.zeros((16, 15), device=dev), "float32"),
+                        (torch.zeros((16, 16)), "is on"),
+                        (torch.zeros((16, 32), device=dev)[:, ::2],
+                         "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            coact_accumulate_cuda(m, accumulate_into=into)
 
 
 def test_pack_built_and_served_on_card(dev, tmp_path):
