@@ -17,7 +17,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      3.35 TB/s vs fp32 flops over 67 TFLOP/s, the H100 SXM data-sheet
      rates), and `index_select` + `torch.mm` as a yardstick (not one call).
   4. slice: full-width opt-350m (24 layers, d_model 1024, d_ff 4096, vocab
-     50272, random weights from --seed; no depth cut) served through
+     50272, random weights from --seed; no depth cut; its runtime also
+     trains the lookahead predictors phase 9b uses) served through
      `InferenceServer(mode="offload")` — 4 requests, 32-token prompts, 16
      new tokens — then the same requests resident. Checks: every request
      finishes by length, the resolved FFN path is the segment kernel, the
@@ -93,6 +94,26 @@ Phases, in order (any failure raises and the script exits non-zero):
      reads each store made (a corrupt event behind a transient on the same
      attempt is never read). A run without CRC verification is timed
      beside them.
+  9b. prefetch: the slice's model served offload through the layer-ahead
+     prefetch worker (`prefetch=True`), each run on a fresh runtime with
+     the slice's placements, 15 decode steps: in memory serial, with the
+     lookahead predictors the slice's
+     `build_offload_runtime(train_lookahead=True)` trained on the card,
+     with `lookahead="oracle"` (depth 0), serial again (step times in
+     turns); from the pack file serial, oracle, trained, and oracle
+     with layer 0's second read fatal (a worker-issued read); the model
+     cast to bf16 serial and trained. Checks: fused launches = decode
+     steps x 24 and no plain call, per run; oracle runs = the serial run's
+     tokens, per-uid io_seconds and `io_summary()` counters; trained runs
+     = serial tokens (margin rule as in 4; bf16 below 1e-3 on the serial
+     bf16 run's logits), the serial fault counters, per-uid I/O summing to
+     the engines' reads (the speculated neurons are read too); the fatal
+     run restarts its worker once and gives the clean tokens; no worker
+     thread is left. Printed per run: ms a step, the scheduler's measured
+     wall / I/O-busy / hidden / exposed seconds a token, the top-ups; and a
+     breakdown of the trained run (`path="prefetch"`: idle share, the
+     worker's `prefetch` and the serving thread's `prefetch_wait` /
+     `topup` spans).
  10. cli: `repro_torch.launch.pack` then `repro_torch.launch.serve --pack
      --verify-checksums` through `main([...])` on an int8 v2 pack of
      `--arch qwen2-7b --n-layers 4 --d-model 1024 --d-ff 4096`, served on
@@ -481,9 +502,12 @@ def slice_phase(dev, seed: int, n_requests: int, prompt_len: int,
     sync(dev)
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # the lookahead predictors are trained on the card here too, for the
+    # prefetch phase (serial serving does not read them)
     runtime = build_offload_runtime(model, params,
                                     rng=np.random.default_rng(seed),
-                                    calib_batch=(8, 64), device=dev)
+                                    calib_batch=(8, 64), train_lookahead=True,
+                                    device=dev)
     sync(dev)
     runtime_s = time.perf_counter() - t0
     summary = runtime.io_summary()
@@ -741,7 +765,8 @@ def check_tokens(model, params, reqs, handles, ref_handles, max_len,
 
 # -- breakdown phase -------------------------------------------------------------
 
-HOST_SPANS = ("decode_step", "probe", "read", "admit")
+HOST_SPANS = ("decode_step", "probe", "read", "admit", "prefetch",
+              "prefetch_wait", "topup")
 
 
 def breakdown_phase(dev, model, params, runtime, reqs, max_len,
@@ -751,7 +776,9 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
     after that path ran: the same requests (new uids) are admitted with one
     `step()`, then the remaining decode steps run under `torch.profiler`
     (CUDA activity: the card's kernel and copy times) and the port's own
-    tracer (host spans of the offload engine). The profiler slows the host,
+    tracer (host spans of the offload engine and, with `prefetch=True`,
+    of the prefetch worker: `prefetch` on its thread, `prefetch_wait` and
+    `topup` on the serving thread). The profiler slows the host,
     so the idle share it gives against its own wall is an upper estimate;
     the share against the path's unprofiled step time is printed beside
     it, and the device time of the kernels named in `kernels`."""
@@ -782,6 +809,7 @@ def breakdown_phase(dev, model, params, runtime, reqs, max_len,
                 wall = time.perf_counter() - t0
         finally:
             disable_tracing()
+            server.close()
         steps = server.stats.decode_steps - steps0
         host = dict.fromkeys(HOST_SPANS, 0.0)
         for ev in tracer.events():
@@ -2254,9 +2282,210 @@ def pack_phase(dev, seed: int, sl: dict, tmp: str) -> dict:
     assert cio["retries"] == crow["implied"]["retries"], crow
     assert cio["corrupt_extents"] == crow["implied"]["corrupt_extents"], crow
     del pack
-    os.remove(path)
     return {"launches": launches, "build": build_row, "serve": row,
-            "faults": crow}
+            "faults": crow, "path": path}
+
+
+# -- prefetch phase ------------------------------------------------------------------
+
+PREFETCH_COUNTERS = ("retries", "corrupt_extents", "degraded_steps",
+                     "worker_restarts")
+PREFETCH_MODEL_IO = ("io_seconds_per_token", "ops_per_token",
+                     "cache_hit_rate", "mean_run_length")
+
+
+def prefetch_phase(dev, seed: int, sl: dict, bf: dict, pack_path: str) -> dict:
+    """The slice's opt-350m served offload through the layer-ahead
+    prefetch worker. In memory: serial, `prefetch=True,
+    lookahead="oracle"`, `prefetch=True` with the lookahead predictors
+    that the slice's `build_offload_runtime(train_lookahead=True)` trained
+    on the card, serial again (the step times in turns); from the
+    pack phase's NeuronPack the same three ways, then a run whose first
+    layer's second read is fatal (a worker-issued read: the worker dies and
+    is restarted once); then the model cast to bf16, serial and with the
+    trained lookahead. Every run starts from a fresh runtime (empty cache)
+    with the slice's placements; counts set to 0 just before each run's
+    decode, read just after.
+
+    Checks: fused launches = decode steps x 24 and no plain call, per run;
+    depth-0 (oracle) runs give the serial run's tokens, per-uid io_seconds
+    and `io_summary()` counters exactly; speculative runs give the serial
+    tokens (margin rule as in 4; bf16 against the serial bf16 run's own
+    logits, below 1e-3), the serial fault counters (all 0), and per-uid
+    I/O summing to the engines' reads (the speculated neurons are read
+    too, so not the serial I/O); the fatal run restarts its worker exactly
+    once and gives the clean tokens; no worker thread is left."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core.pipeline import IOScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import OffloadedFFNRuntime
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.store import FaultEvent, FaultPlan
+    from repro_torch.store.packer import extract_dense_ffn_bundles
+
+    model, params, reqs = sl["model"], sl["params"], sl["reqs"]
+    max_len = sl["max_len"]
+    placements = [e.placement for e in sl["runtime"].engines]
+    n_layers = len(placements)
+    bundles = extract_dense_ffn_bundles(model.cfg, params)
+
+    def fresh(m=model, b=bundles, **kw):
+        return OffloadedFFNRuntime(m.cfg, b, placements, device=dev, **kw)
+
+    def run(label, rt, m=model, p=params, record=None, **kw):
+        server = InferenceServer(m, p, max_slots=len(reqs), max_len=max_len,
+                                 mode="offload", offload=rt, device=dev,
+                                 scheduler=IOScheduler(overlap=True), **kw)
+        if record is not None:
+            decode = server._decode_offload
+
+            def recorded(active):
+                out = decode(active)
+                record.append(np.asarray(out[0], np.float32))
+                return out
+            server._decode_offload = recorded
+        handles = [server.submit(r) for r in reqs]
+        ops.reset_counts()
+        server.drain()
+        sync(dev)
+        ffn = ops.counts["sparse_ffn_segments_fused"]
+        st = server.stats
+        io = rt.io_summary()
+        sched = server.scheduler.summary()
+        server.close()
+        row = {"run": label, "decode_steps": st.decode_steps,
+               "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+               "ffn_launches": ffn.launches, "ffn_plain_calls": ffn.plain_calls,
+               "topups": rt.topup_total,
+               "io_seconds_per_token_modeled": io["io_seconds_per_token"],
+               "engine_io_seconds": sum(t.io.seconds for e in rt.engines
+                                        for t in e.history),
+               **{k: io[k] for k in PREFETCH_COUNTERS}}
+        if "measured_wall_seconds_per_token" in sched:
+            row.update({k: sched[f"measured_{k}_seconds_per_token"]
+                        for k in ("wall", "io_busy", "hidden", "exposed")})
+        if "measured_file_seconds_per_token" in io:
+            row["measured_file_seconds_per_token"] = \
+                io["measured_file_seconds_per_token"]
+        emit({"prefetch": row})
+        taken, other = ((ffn.launches, ffn.plain_calls) if dev.type == "cuda"
+                        else (ffn.plain_calls, ffn.launches))
+        assert other == 0 and taken == st.decode_steps * n_layers > 0, row
+        for h in handles:
+            assert h.result.finish_reason == "length", (h.uid, h.result)
+        return handles, io, row
+
+    def same_as(run_out, ref_out, exact_io: bool, margin_rows=None):
+        (handles, io, row), (ref, ref_io, ref_row) = run_out, ref_out
+        what, against = row["run"], ref_row["run"]
+        if margin_rows is None:
+            check_tokens(model, params, reqs, handles, ref, max_len, what,
+                         against)
+        else:       # bf16: the serial run's own logits judge a difference
+            for h, r in zip(handles, ref):
+                t = first_divergence(h.result.tokens, r.result.tokens)
+                if t is not None:
+                    top2 = np.sort(margin_rows[t - 1][h.uid])[-2:]
+                    margin = float(top2[1] - top2[0])
+                    emit({"token_mismatch": {"uid": h.uid, "step": t,
+                                             "margin": margin, "run": what,
+                                             "reference": against}})
+                    assert t > 0 and margin < BF16_MARGIN, (what, h.uid, t)
+        for k in PREFETCH_COUNTERS:
+            assert io[k] == ref_io[k], (what, k, io[k], ref_io[k])
+        if exact_io:
+            for h, r in zip(handles, ref):
+                assert h.result.tokens == r.result.tokens, (what, h.uid)
+                assert h.result.io_seconds == r.result.io_seconds, (what,
+                                                                     h.uid)
+            for k in PREFETCH_MODEL_IO:
+                assert io[k] == ref_io[k], (what, k)
+        else:
+            uid_io = sum(h.result.io_seconds for h in handles)
+            reads = row["engine_io_seconds"]
+            assert abs(uid_io - reads) <= 1e-9 * reads, (what, uid_io, reads)
+
+    threads_before = threading.active_count()
+    # trained on the card by the slice's build_offload_runtime(
+    # train_lookahead=True): entry k predicts layer k+1 from layer k
+    lookahead = sl["runtime"].lookahead
+    assert len(lookahead) == n_layers - 1
+    assert lookahead[0].w1.device == dev
+
+    # in memory, the step times in turns: serial / prefetch / prefetch /
+    # serial
+    serial = run("memory_serial", fresh())
+    rt_trained = fresh(lookahead=lookahead)
+    trained = run("memory_trained", rt_trained, prefetch=True)
+    oracle = run("memory_oracle", fresh(), prefetch=True, lookahead="oracle")
+    serial2 = run("memory_serial_2", fresh())
+    same_as(serial2, serial, exact_io=True)
+    same_as(oracle, serial, exact_io=True)
+    same_as(trained, serial, exact_io=False)
+    # the trained runtime once more under the profiler: its idle share
+    breakdown_phase(dev, model, params, rt_trained, reqs, max_len,
+                    {"offload": trained[2]["decode_ms_per_step"]},
+                    path="prefetch", prefetch=True)
+    del rt_trained
+
+    # from the pack file
+    def from_pack(**kw):
+        return OffloadedFFNRuntime.from_pack(model.cfg, pack_path, device=dev,
+                                             **kw)
+    with from_pack() as rt:
+        pserial = run("pack_serial", rt)
+    with from_pack() as rt:
+        poracle = run("pack_oracle", rt, prefetch=True, lookahead="oracle")
+    with from_pack(lookahead=lookahead) as rt:
+        ptrained = run("pack_trained", rt, prefetch=True)
+    plans = [FaultPlan([FaultEvent(1, "fatal")], seed=seed)] + [None] * (
+        n_layers - 1)
+    with from_pack(fault_plans=plans) as rt:
+        pfatal = run("pack_fatal", rt, prefetch=True, lookahead="oracle")
+    same_as(poracle, pserial, exact_io=True)
+    same_as(ptrained, pserial, exact_io=False)
+    assert plans[0].injected["fatal"] == 1, plans[0].injected
+    assert pfatal[1]["worker_restarts"] == 1, pfatal[2]
+    assert pfatal[1]["degraded_steps"] >= 1, pfatal[2]
+    for h, r in zip(pfatal[0], pserial[0]):
+        assert h.result.tokens == r.result.tokens, ("pack_fatal", h.uid)
+    for h, r in zip(pserial[0], serial[0]):   # the pack serves the slice
+        assert h.result.tokens == r.result.tokens
+        assert h.result.io_seconds == r.result.io_seconds
+
+    # the model cast to bf16, with the trained lookahead
+    m16, p16 = bf["model"], bf["params"]
+    b16 = extract_dense_ffn_bundles(m16.cfg, p16)
+    placements16 = [e.placement for e in bf["runtime"].engines]
+
+    def fresh16(**kw):
+        return OffloadedFFNRuntime(m16.cfg, b16, placements16, device=dev,
+                                   **kw)
+    rows16 = []
+    bserial = run("bf16_serial", fresh16(), m16, p16, record=rows16)
+    btrained = run("bf16_trained", fresh16(lookahead=lookahead), m16, p16,
+                   prefetch=True)
+    same_as(btrained, bserial, exact_io=False, margin_rows=rows16)
+    del b16, bundles
+
+    assert not any(t.name == "ripple-prefetch"
+                   for t in threading.enumerate())
+    assert threading.active_count() == threads_before
+    rows = [o[2] for o in (serial, trained, oracle, serial2, pserial,
+                           poracle, ptrained, pfatal, bserial, btrained)]
+    summary = {
+        "ms_per_step_in_turns": {
+            k: r["decode_ms_per_step"] for k, r in zip(
+                ("serial", "trained", "oracle", "serial_2"), rows[:4])},
+        "pack_ms_per_step": {r["run"]: r["decode_ms_per_step"]
+                             for r in rows[4:8]},
+        "topups": {r["run"]: r["topups"] for r in rows},
+        "fatal_worker_restarts": pfatal[1]["worker_restarts"]}
+    emit({"prefetch_summary": summary})
+    return {"launches_by_run": {r["run"]: r["ffn_launches"] for r in rows
+                                if r["run"] != "memory_serial_2"}}
 
 
 # -- cli phase -------------------------------------------------------------------------
@@ -2434,6 +2663,8 @@ def main(argv=None) -> int:
     ckern = coact_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         pk = pack_phase(dev, args.seed, sl, tmp)
+        pf = prefetch_phase(dev, args.seed, sl, bf, pk["path"])
+        os.remove(pk["path"])
         cli_phase(dev, args.seed, tmp, reduced=args.cpu_rehearsal)
     skern = swa_kernel_phase(dev, args.seed, W0=(
         REHEARSAL_SWA_W if args.cpu_rehearsal
@@ -2464,7 +2695,8 @@ def main(argv=None) -> int:
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sl["launches"],
         "launches_by_run": {"offload_float32": sl["launches"],
-                            "offload_bfloat16": bf16_launches},
+                            "offload_bfloat16": bf16_launches,
+                            **pf["launches_by_run"]},
         "max_abs_err": max(c["max_abs_err"] for c in kern["cases"]),
         "ms": main_case["ms"],
         "device_cold_ms": main_case["device_cold_ms"],

@@ -4,8 +4,10 @@
 numpy arrays (what `jax.tree_util.tree_map(np.asarray, params)` gives) and
 returns the port's params: the same leaf names and the same layouts
 (`w_up` [d, d_ff], `w_down` [d_ff, d], ...), with the stacked [G, ...] scan
-axis of `params["stack"]` unstacked into a list of G group dicts. Nothing
-here imports the reference package; it only reads arrays.
+axis of `params["stack"]` unstacked into a list of G group dicts.
+`predictor_params_from_numpy` does the same for one activation predictor
+(`PredictorParams` w1, b1, w2, b2). Nothing here imports the reference
+package; it only reads arrays.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.predictor import PredictorParams
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 
@@ -55,6 +58,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                                                              dev))
                     for g in range(G)]
     return out
+
+
+def predictor_params_from_numpy(params, device: DeviceLike = None
+                                ) -> PredictorParams:
+    """One reference predictor's (w1, b1, w2, b2) — its `PredictorParams`
+    with numpy (or array) leaves — as the port's `PredictorParams` on
+    `device` (default cuda), the same values and layouts."""
+    dev = resolve_device(device)
+    return PredictorParams(*(_to_tensor(a, dev) for a in params))
 
 
 def _leaves(tree: Any):

@@ -6,8 +6,9 @@ Offline stage: `trace` (activation masks, disk shards) -> `coactivation`
 `placement` (greedy Hamiltonian-path search). Online stage: `collapse`
 (access collapse), `cache` (linking-aligned S3-FIFO), `storage` (UFS
 device model + neuron store), `engine` (the batched serving pipeline),
-`pipeline` (double-buffered I/O-compute overlap model), `sparse_ffn` (FFN
-math over flash bundles, in torch).
+`pipeline` (double-buffered I/O-compute overlap model), `predictor`
+(activation and lookahead predictors, trained on the device), `sparse_ffn`
+(FFN math over flash bundles, in torch).
 
 `collapse`, `placement`, `cache`, `storage`, `engine` and `pipeline` are
 framework-free numpy, kept as copies of the reference package so the two
@@ -32,8 +33,14 @@ from repro_torch.core.pipeline import (IOScheduler, Stage, TokenTiming,
 from repro_torch.core.placement import (PlacementResult, frequency_placement,
                                         identity_placement, path_length,
                                         search_placement)
-from repro_torch.core.sparse_ffn import (FFNWeights, dense_ffn, make_bundles,
-                                         sparse_ffn_from_bundles)
+from repro_torch.core.predictor import (PredictorConfig, PredictorParams,
+                                        init_predictor, predict_mask,
+                                        predictor_logits, recall_precision,
+                                        train_predictor)
+from repro_torch.core.sparse_ffn import (FFNWeights, dense_ffn,
+                                         ffn_pre_activation, make_bundles,
+                                         sparse_ffn_from_bundles,
+                                         sparse_ffn_gather)
 from repro_torch.core.storage import (UFS31, UFS40, IOStats, ManagedReader,
                                       NeuronStore, UFSDevice)
 

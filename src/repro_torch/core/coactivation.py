@@ -65,12 +65,30 @@ class CoActivationStats:
                              f"{self.n_neurons}")
         if self.device.type == "cuda" and m.dtype not in (torch.bool,
                                                           torch.uint8):
-            m = m != 0          # the kernel reads 0/1 bytes
+            m = self._as_bytes(m)
         return m
+
+    @staticmethod
+    def _as_bytes(m: torch.Tensor) -> torch.Tensor:
+        """A mask of another dtype on the card, counted as the reference
+        counts it (by value) through the kernel's byte route: its minimum,
+        maximum and whether every value is an integer come to the host in
+        one read, and `card_mask_route` decides."""
+        if m.numel() == 0:
+            return m.to(torch.uint8)
+        integral = (torch.ones((), dtype=torch.bool, device=m.device)
+                    if not m.dtype.is_floating_point
+                    else (m == m.trunc()).all())
+        vmin, vmax, whole = torch.stack(
+            [m.amin().double(), m.amax().double(), integral.double()]).tolist()
+        card_mask_route(m.dtype, vmin, vmax, bool(whole))
+        return m.to(torch.uint8)
 
     def update(self, masks: MaskLike) -> None:
         """masks: [T, n] bool/0-1 activation mask for T tokens (numpy, or a
-        tensor on this stats' device)."""
+        tensor on this stats' device). Other values count by value, as in
+        the reference; on the card only integers 0..255 do, and any other
+        value raises (`card_mask_route`)."""
         m = self._as_masks(masks)
         self.counts += m.to(torch.int64).sum(dim=0)
         # A += MᵀM — the offline hot spot; on CUDA the coact kernel adds its
@@ -131,6 +149,35 @@ class CoActivationStats:
         out.pair_counts = self.pair_counts + other.pair_counts
         out.n_tokens = self.n_tokens + other.n_tokens
         return out
+
+
+def card_mask_route(dtype: torch.dtype, vmin=None, vmax=None,
+                    integral: bool = True) -> str:
+    """How the card counts a mask of `dtype` whose values lie in [vmin,
+    vmax] (`integral`: every value is an integer). bool and uint8 masks go
+    to the coact kernel as they are ("as_is": no value is read). Any other
+    dtype whose values are all integers in 0..255 is copied to uint8
+    ("uint8"), whose byte values the kernel counts exactly, as the
+    reference counts values (`masks.astype(np.int64).sum`, a float32 MᵀM).
+    Anything else raises ValueError: the card cannot count negative
+    values, values above 255 or fractions exactly, and it binarises
+    nothing."""
+    if dtype in (torch.bool, torch.uint8):
+        return "as_is"
+    bad = []
+    if not integral:
+        bad.append("values that are not integers")
+    if vmin is not None and vmin < 0:
+        bad.append(f"a minimum of {vmin}")
+    if vmax is not None and vmax > 255:
+        bad.append(f"a maximum of {vmax}")
+    if bad:
+        raise ValueError(
+            f"CoActivationStats on the card counts masks of integer values "
+            f"0..255; this {dtype} mask has {' and '.join(bad)}, which the "
+            f"coact kernel cannot count exactly (pass a bool or 0/1 mask, "
+            f"or count it on the CPU)")
+    return "uint8"
 
 
 def stats_from_masks(masks: MaskLike,

@@ -32,6 +32,33 @@ def dense_ffn(x: torch.Tensor, w: FFNWeights,
     return act @ w.w_down
 
 
+def ffn_pre_activation(x: torch.Tensor, w: FFNWeights) -> torch.Tensor:
+    return x @ w.w_up.T
+
+
+def sparse_ffn_gather(
+    x: torch.Tensor,
+    w: FFNWeights,
+    neuron_ids: torch.Tensor,
+    activation: str = "relu",
+    valid_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """FFN over an activated subset (padded with `valid_mask`).
+
+    x: [B, d]; neuron_ids: [k] integer ids (may contain padding);
+    valid_mask: [k] bool. Exact when the true activated set is a subset of
+    neuron_ids (ReLU zeroes the rest anyway); padding rows are masked to
+    zero contribution.
+    """
+    up = w.w_up[neuron_ids]                      # [k, d]
+    act = apply_activation(x @ up.T, activation)
+    if w.w_gate is not None:
+        act = act * (x @ w.w_gate[neuron_ids].T)
+    if valid_mask is not None:
+        act = act * valid_mask[None, :].to(act.dtype)
+    return act @ w.w_down[neuron_ids]            # [B, d]
+
+
 def sparse_ffn_from_bundles(
     x: torch.Tensor,
     bundles: torch.Tensor,

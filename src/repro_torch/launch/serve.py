@@ -1,14 +1,14 @@
 """Serving command of the port: slot-based continuous batching
 (InferenceServer), resident or through the RIPPLE offload runtime (oracle
-masks -> batched engine step -> the fused segment FFN kernel), on the
-port's device.
+masks -> batched engine step -> the fused segment FFN kernel), optionally
+through the layer-ahead prefetch worker, on the port's device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --reduced \
       --requests 8 --prompt-len 32 --new-tokens 16 \
       [--mode offload [--pack model.npack [--verify-checksums]]] \
       [--slots 4] [--arrival-rate 2.0] [--burst 4] \
       [--queue-limit 16] [--ttft-slo 2.0] [--itl-slo 0.25] [--stream] \
-      [--no-overlap] [--no-placement] [--kv-quant] \
+      [--prefetch] [--no-overlap] [--no-placement] [--kv-quant] \
       [--page-size 16 --num-pages 256 [--page-overcommit]] [--device cpu]
 
 `--slots N` fixes the decode-slot pool (default: one slot per request — the
@@ -17,9 +17,12 @@ one-shot batch). `--arrival-rate R` draws Poisson request arrivals at R req/s
 as slots free up; `--stream` prints tokens as they are emitted. The overload
 knobs `--queue-limit / --ttft-slo / --itl-slo` arm bounded-queue backpressure
 and deadline retirement (finish_reason "rejected" / "timeout") — see the
-README "Load testing & SLOs" section. `--prefetch` belongs to a slice that
-is not ported yet and exits with a one-line message. Weights come from the
-port's seeded init (`repro_torch.launch`), not the reference's.
+README "Load testing & SLOs" section. `--prefetch` serves offload decode
+through the asynchronous prefetch worker; an in-memory runtime then trains
+its cross-layer lookahead predictors on the calibration trace
+(`build_offload_runtime(train_lookahead=True)`), a `--pack` runtime
+prefetches at depth 0. Weights come from the port's seeded init
+(`repro_torch.launch`), not the reference's.
 """
 import argparse
 import time
@@ -85,8 +88,7 @@ def main(argv=None):
                     help="disable I/O-compute overlap in the offload scheduler")
     ap.add_argument("--prefetch", action="store_true",
                     help="async layer-ahead prefetch worker driven by "
-                         "trained lookahead predictors: not ported to "
-                         "PyTorch yet (exits with a message)")
+                         "trained lookahead predictors (offload mode)")
     ap.add_argument("--no-placement", action="store_true",
                     help="identity flash layout (LLMFlash-style baseline)")
     ap.add_argument("--pack", default=None, metavar="PATH",
@@ -126,8 +128,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record a Chrome trace-event / Perfetto timeline of "
-                         "the whole run (server steps, engine reads, "
-                         "per-request lanes) and write it to PATH; "
+                         "the whole run (server steps, engine reads, prefetch "
+                         "worker, per-request lanes) and write it to PATH; "
                          "open it at https://ui.perfetto.dev")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; 'cpu' "
@@ -135,10 +137,6 @@ def main(argv=None):
     add_verbosity_flag(ap)
     args = ap.parse_args(argv)
     configure_logging(args.verbose)
-    if args.prefetch:
-        raise SystemExit("--prefetch (the asynchronous prefetch pipeline and "
-                         "its lookahead predictors) is not ported to PyTorch "
-                         "yet")
     tracer = enable_tracing() if args.trace_out else None
     if bool(args.page_size) != bool(args.num_pages):
         raise SystemExit("pass both --page-size and --num-pages, or neither")
@@ -182,7 +180,8 @@ def main(argv=None):
         else:
             offload = build_offload_runtime(
                 model, params, rng=rng, engine_cfg=EngineConfig(),
-                use_placement=not args.no_placement, device=dev)
+                use_placement=not args.no_placement,
+                train_lookahead=args.prefetch, device=dev)
             logger.info("offload runtime calibrated: %d layer engines in %.2fs",
                         offload.n_layers, time.perf_counter() - t0)
         scheduler = IOScheduler(overlap=not args.no_overlap)
@@ -209,7 +208,8 @@ def main(argv=None):
     server = InferenceServer(
         model, params, max_slots=args.slots or len(reqs),
         max_len=args.prompt_len + args.new_tokens + 8,
-        mode=mode, offload=offload, scheduler=scheduler, seed=args.seed,
+        mode=mode, offload=offload, scheduler=scheduler,
+        prefetch=args.prefetch, seed=args.seed,
         queue_limit=args.queue_limit or None,
         ttft_slo_s=args.ttft_slo or None,
         itl_slo_s=args.itl_slo or None,
@@ -231,8 +231,9 @@ def main(argv=None):
                 time.sleep(min(arrivals[i] - now, 0.01))
     except KeyboardInterrupt:
         # graceful interrupt: retire every queued/in-flight request with
-        # finish_reason="error" (partial tokens preserved) and fall through
-        # to the normal result/stat flush instead of a traceback.
+        # finish_reason="error" (partial tokens preserved), shut the
+        # prefetch worker down cleanly, and fall through to the normal
+        # result/stat flush instead of a traceback.
         n = server.abort("interrupted (KeyboardInterrupt)")
         logger.warning("interrupted: retired %d queued/in-flight requests; "
                        "flushing partial results", n)
@@ -302,6 +303,15 @@ def main(argv=None):
                     p["serial_seconds_per_token"] * 1e3,
                     p["overlapped_seconds_per_token"] * 1e3,
                     p["overlap_efficiency"] * 100, p["overlap_enabled"])
+        if "measured_wall_seconds_per_token" in p:
+            logger.info("prefetch MEASURED: wall %.2fms/token, io-worker busy "
+                        "%.2fms, hidden %.2fms, exposed %.2fms (%.1f%% of "
+                        "I/O host time off the critical path)",
+                        p["measured_wall_seconds_per_token"] * 1e3,
+                        p["measured_io_busy_seconds_per_token"] * 1e3,
+                        p["measured_hidden_seconds_per_token"] * 1e3,
+                        p["measured_exposed_seconds_per_token"] * 1e3,
+                        p["measured_overlap_efficiency"] * 100)
     if offload is not None:
         offload.close()     # releases FileNeuronStore fds for --pack runs
     if tracer is not None:

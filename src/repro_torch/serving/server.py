@@ -20,11 +20,16 @@ copy-on-write keeps sharers intact, a page gate defers what the pool cannot
 cover, and every retirement path releases the request's pages. Each decode
 step sends the page tables to the device once, for all layers.
 
-Offload mode rides the same loop: the [n_slots, n_neurons] ReLU-oracle mask
-matrix (inactive rows zeroed) feeds `OffloadEngine.step_masks`, per-uid I/O
+Offload mode rides the same loop: the [n_slots, n_neurons] mask matrix
+(the ReLU oracle, or the runtime's trained predictors with `oracle=False`;
+inactive rows zeroed) feeds `OffloadEngine.step_masks`, per-uid I/O
 attribution accumulates on each handle (summing exactly to the engines'
 merged read time), and each dense FFN runs through the fused segment
-kernel.
+kernel. With `prefetch=True` one `PrefetchWorker` stays up across the whole
+run: layer k+1's engine begin phase (issued with its lookahead-predicted
+mask, or its true mask with `lookahead="oracle"`) runs on the worker while
+the serving thread computes layer k, and a top-up read serves what the
+lookahead missed.
 
 Overload robustness, copied host logic: a bounded admission queue with
 priority shedding, priority + earliest-deadline-first admission, TTFT and
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import IOScheduler
+from repro_torch.core.predictor import PredictorParams, predict_mask
 from repro_torch.device import DeviceLike, check_same_device, resolve_device
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        promoted_matmul, unembed)
@@ -58,7 +64,7 @@ from repro_torch.models.transformer import stack_decode_step_layerwise
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs import request_timeline as _build_request_timeline
 from repro_torch.serving.engine import (OffloadedFFNRuntime, Request, Result,
-                                        check_pack_path, reject_unported)
+                                        check_pack_path)
 from repro_torch.serving.paging import PagePool, cdiv
 from repro_torch.utils import logger, stable_hash
 
@@ -196,8 +202,14 @@ class InferenceServer:
     `mode="offload"`; the server then owns the runtime and `close()` closes
     its layer stores.
 
-    Options whose slice has not been ported (`prefetch=True`,
-    `oracle=False`) raise NotImplementedError.
+    Offload masks come from the exact ReLU oracle, or with `oracle=False`
+    from the runtime's trained per-layer `predictors`. `prefetch=True`
+    runs offload decode through the layer-ahead prefetch pipeline;
+    `lookahead` picks its speculation source as `ServingEngine` does:
+    predictor params, None (the runtime's trained lookahead, else depth
+    0), or "oracle" (depth 0: each layer's prefetch carries its true mask).
+    Speculative lookahead is exact only for relu/relu2 and raises
+    ValueError on other activations.
     """
 
     def __init__(self, model: Model, params: Any, *, max_slots: int = 4,
@@ -205,6 +217,7 @@ class InferenceServer:
                  offload: Optional[OffloadedFFNRuntime] = None,
                  scheduler: Optional[IOScheduler] = None,
                  oracle: bool = True, prefetch: bool = False,
+                 lookahead: Union[str, List[PredictorParams], None] = None,
                  seed: int = 0, decode_fn=None, prefill_fn=None,
                  pack_path: Optional[str] = None,
                  verify_checksums: bool = False,
@@ -226,7 +239,8 @@ class InferenceServer:
         if page_size is not None and swa:
             raise ValueError("paged KV cache does not combine with swa "
                              "(sliding-window rings are per-slot, not paged)")
-        reject_unported(prefetch=prefetch, oracle=oracle)
+        if isinstance(lookahead, str) and lookahead != "oracle":
+            raise ValueError(f"unknown lookahead mode {lookahead!r}")
         self.device = resolve_device(device)
         check_same_device(self.device, model.device, "the model")
         cfg = model.cfg
@@ -258,6 +272,7 @@ class InferenceServer:
         self.mode = mode
         self.offload = offload
         self._owns_offload = pack_path is not None   # we built it: we close it
+        self.prefetch = prefetch
         self.scheduler = scheduler or IOScheduler(overlap=True)
         self.stats = ServerStats(n_slots=max_slots)
         self.queue_limit = queue_limit
@@ -305,12 +320,37 @@ class InferenceServer:
         else:
             self._cache = model.init_cache(max_slots, max_len, swa=swa)
         if mode == "offload":
-            self._w_ups = _oracle_w_ups(model, params)
-            if len(self._w_ups) != offload.n_layers:
+            self._w_ups = _oracle_w_ups(model, params) if oracle else None
+            if self._w_ups is not None and len(self._w_ups) != offload.n_layers:
                 raise ValueError(
                     f"runtime has {offload.n_layers} layer engines, model has "
                     f"{len(self._w_ups)} dense FFN layers")
+            if not oracle and offload.predictors is None:
+                raise ValueError("oracle=False needs the runtime's trained "
+                                 "predictors")
+            # lookahead source resolution, as ServingEngine documents it:
+            # params > runtime-trained > "oracle" (depth 0)
+            la = lookahead if not isinstance(lookahead, str) else None
+            if la is None and lookahead is None:
+                la = offload.lookahead
+            if la is not None and la is not offload.lookahead:
+                offload.lookahead = la
+                offload._lookahead_np = None
+            self._la_params = la
             self.scheduler.register_metrics()
+            if prefetch and la is not None and \
+                    cfg.activation not in ("relu", "relu2"):
+                # speculative lookahead OVER-predicts by design; both FFN
+                # paths (bundles and the fused segment kernel) evaluate the
+                # whole SERVED union — speculated neurons included — which is
+                # only exact when act(pre <= 0) == 0. Oracle lookahead
+                # (la=None, zero speculation depth) stays exact for any
+                # activation, on either kernel: the segment path masks
+                # covered-but-not-served neurons in-kernel.
+                raise ValueError(
+                    f"prefetch with speculative lookahead is exact only for "
+                    f"relu/relu2 activations, not {cfg.activation!r}; use "
+                    f"lookahead='oracle' or serve serially")
         self._register_metrics()
 
     def _register_metrics(self) -> None:
@@ -642,12 +682,16 @@ class InferenceServer:
         return n
 
     def close(self) -> None:
-        """Close the offload runtime's layer stores when this server built
-        the runtime itself (pack_path=); a caller's runtime stays open (no
-        prefetch worker runs in the port yet). Idempotent; the server stays
-        usable for inspection."""
-        if self.offload is not None and self._owns_offload:
-            self.offload.close()
+        """Release background resources: the prefetch worker always (its
+        thread is joined); the offload runtime's stores too when this server
+        built the runtime itself (pack_path=). Idempotent; the server stays
+        usable for inspection, and further steps would restart the
+        worker."""
+        if self.mode == "offload" and self.offload is not None:
+            if self._owns_offload:
+                self.offload.close()
+            else:
+                self.offload.stop_prefetch()
 
     def __enter__(self) -> "InferenceServer":
         return self
@@ -953,12 +997,25 @@ class InferenceServer:
 
     # -- offload decode: masks -> batched engine step -> sparse FFN ----------
     def _true_masks(self, dense_idx: int, h2: torch.Tensor,
-                    active: np.ndarray) -> np.ndarray:
+                    active: np.ndarray, with_hidden: bool = False):
         """[n_slots, n_neurons] activation masks for one layer: the exact
-        ReLU oracle, with retired/free rows zeroed so they leave the union —
-        a finished request incurs no further I/O."""
-        masks = (promoted_matmul(h2, self._w_ups[dense_idx]) > 0
-                 ).cpu().numpy()
+        ReLU oracle (or the trained predictor with `oracle=False`), with
+        retired/free rows zeroed so they leave the union — a finished
+        request incurs no further I/O. `with_hidden=True` also returns `h2`
+        on the host as float32 (the lookahead predictor's input), fetched
+        in the same device-to-host read as the mask."""
+        if self._w_ups is not None:
+            dev_masks = promoted_matmul(h2, self._w_ups[dense_idx]) > 0
+        else:
+            dev_masks = predict_mask(self.offload.predictors[dense_idx], h2)
+        h_np = None
+        if with_hidden:
+            both = torch.cat([dev_masks.float(), h2.float()], dim=1)
+            both = both.cpu().numpy()
+            masks, h_np = both[:, :dev_masks.shape[1]] > 0, \
+                both[:, dev_masks.shape[1]:]
+        else:
+            masks = dev_masks.cpu().numpy()
         masks = masks & active[:, None]
         # feed the admission predictor: this layer's last true masks, plus an
         # EMA of per-column activation frequency over the active rows
@@ -968,13 +1025,17 @@ class InferenceServer:
             prev = self._col_freq[dense_idx]
             self._col_freq[dense_idx] = (col if prev is None
                                          else 0.8 * prev + 0.2 * col)
-        return masks
+        return (masks, h_np) if with_hidden else masks
 
     def _decode_offload(self, active: np.ndarray):
         cfg = self.cfg
         runtime = self.offload
         n_slots = self.max_slots
+        n_layers = runtime.n_layers
         req_io = np.zeros(n_slots)
+        if self.prefetch and not runtime.prefetch_active:
+            runtime.start_prefetch()        # one worker for the whole run
+        la_params = self._la_params if self.prefetch else None
 
         def override(dense_idx: int, normed2: torch.Tensor) -> torch.Tensor:
             h2 = normed2[:, 0]
@@ -988,6 +1049,31 @@ class InferenceServer:
             np.add(req_io, res.req_io_seconds, out=req_io)
             return y[:, None]
 
+        # Pipelined path: submit layer k+1's speculated prefetch, then
+        # complete layer k against its true mask (top-up for mis-predictions).
+        def override_prefetch(dense_idx: int,
+                              normed2: torch.Tensor) -> torch.Tensor:
+            h2 = normed2[:, 0]
+            speculate = la_params is not None and dense_idx + 1 < n_layers
+            if speculate:
+                masks_true, h_np = self._true_masks(dense_idx, h2, active,
+                                                    with_hidden=True)
+            else:
+                masks_true = self._true_masks(dense_idx, h2, active)
+            if dense_idx == 0 or la_params is None:
+                runtime.begin_layer(dense_idx, masks_true)   # depth 0
+            if speculate:
+                spec = runtime.predict_lookahead(dense_idx, h_np)
+                runtime.begin_layer(dense_idx + 1, spec & active[:, None])
+            y, res, meas = runtime.complete_layer(dense_idx, h2, masks_true)
+            flops = (2.0 * n_slots * res.merged.n_activated
+                     * runtime.n_mats * cfg.d_model)
+            self.scheduler.record_stage(dense_idx,
+                                        io_seconds=res.merged.io.seconds,
+                                        flops=flops, measured=meas)
+            np.add(req_io, res.req_io_seconds, out=req_io)
+            return y[:, None]
+
         t0 = time.perf_counter()
         cur, pos, pt = self._step_inputs()
         x = embed_tokens(self.params["embed"], cur, cfg)
@@ -996,7 +1082,8 @@ class InferenceServer:
         h, cache = stack_decode_step_layerwise(
             self.params["stack"], x, pos,
             self._pool.cache_groups if paged else self._cache, cfg,
-            ffn_override=override, page_tables=pt)
+            ffn_override=override_prefetch if self.prefetch else override,
+            page_tables=pt)
         if paged:
             self._pool.cache_groups = cache
         else:
@@ -1005,8 +1092,12 @@ class InferenceServer:
         logits = unembed(self.params["embed"], h, cfg)
         rows = logits[:, 0].float().cpu().numpy()   # the end-of-token sync
         token_wall = time.perf_counter() - t0
-        timing = self.scheduler.end_token(compute_seconds=token_wall)
-        return rows, token_wall, req_io, timing.overlapped_seconds
+        timing = self.scheduler.end_token(
+            compute_seconds=token_wall,
+            wall_seconds=token_wall if self.prefetch else None)
+        over = (timing.measured_wall_seconds if self.prefetch
+                else timing.overlapped_seconds)
+        return rows, token_wall, req_io, over
 
 
 def _oracle_w_ups(model: Model, params: Any) -> List[torch.Tensor]:

@@ -1,7 +1,9 @@
 """Deterministic fault injection for the flash-serving path (a copy of the
 reference's `store/faults.py`: the same schedules from the same seeds, the
-same counters). The port has no prefetch worker yet, so a `fatal` fault
-propagates out of the read on the serving thread.
+same counters). A `fatal` fault propagates out of the read: on the serving
+thread it ends the step; on the prefetch worker it kills the thread, and
+the offload runtime's supervision restarts it and serves the lost layer
+synchronously.
 
 The paper's premise is that decode latency is dominated by flash I/O on
 IOPS-constrained smartphones — exactly the environment where reads are

@@ -258,6 +258,36 @@ def test_bf16_offload_swa_server_matches_reference():
     _assert_logits_then_tokens(steps, jsteps, handles, jhandles)
 
 
+@pytest.mark.parametrize("kv", ["paged", "int8"])
+@pytest.mark.parametrize("arch", ["opt-350m", "qwen2-7b"])
+def test_bf16_offload_paged_and_int8_kv_match_reference(arch, kv):
+    """bf16 offload with the paged KV arena (page 4, 40 pages: bf16
+    arenas) and with the int8 KV cache (`kv_quant`): the reference's
+    finish reasons and per-uid I/O exactly, logits and tokens as in the
+    contiguous-cache test; on the paged run the paged op's plain version
+    ran on every decode attention."""
+    extra = dict(kv_quant=True) if kv == "int8" else {}
+    server_kw = dict(page_size=4, num_pages=40) if kv == "paged" else {}
+    jmodel, jparams, jruntime, model, params, runtime = _build(
+        arch, 0, True, **extra)
+    with jax.disable_jit():
+        jhandles, jsteps, _ = _serve(JInferenceServer, JRequest, jmodel,
+                                     jparams, mode="offload",
+                                     offload=jruntime, **server_kw)
+    ops.reset_counts()
+    handles, steps, stats = _serve(InferenceServer, Request, model, params,
+                                   mode="offload", offload=runtime,
+                                   device="cpu", **server_kw)
+    paged = ops.counts["paged_decode"]
+    assert (paged.launches, paged.plain_calls) == (
+        0, stats.decode_steps * model.cfg.n_layers if kv == "paged" else 0)
+    for h, jh, n in zip(handles, jhandles, NEW):
+        assert h.result.finish_reason == jh.result.finish_reason == "length"
+        assert len(h.result.tokens) == n
+        assert h.result.io_seconds == jh.result.io_seconds > 0
+    _assert_logits_then_tokens(steps, jsteps, handles, jhandles)
+
+
 def test_bf16_identity_layout_serves_bundles_like_reference():
     """use_placement=False: the bundles path stages the bf16 bits read from
     the store (no promotion there: its FFN stays in bf16, as the

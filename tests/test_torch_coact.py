@@ -228,3 +228,56 @@ def test_stats_update_adds_in_place_bit_identical_to_reference():
     assert ops.counts["coact_accumulate"].plain_calls == 8
     np.testing.assert_array_equal(ts.distance_matrix(), js.distance_matrix())
     assert ts.n_tokens == js.n_tokens
+
+
+@pytest.mark.parametrize("dtype,vmin,vmax,integral,route", [
+    (torch.bool, None, None, True, "as_is"),
+    (torch.uint8, None, None, True, "as_is"),
+    (torch.int32, 0, 1, True, "uint8"),
+    (torch.int64, 0, 255, True, "uint8"),
+    (torch.float32, 0.0, 2.0, True, "uint8"),
+    (torch.float16, 0.0, 0.0, True, "uint8"),
+    (torch.int32, -1, 3, True, "minimum of -1"),
+    (torch.int16, 0, 256, True, "maximum of 256"),
+    (torch.float32, 0.0, 1.0, False, "not integers"),
+    (torch.float64, -0.5, 300.0, False, "not integers and a minimum"),
+])
+def test_card_mask_route_decides_every_case(dtype, vmin, vmax, integral,
+                                            route):
+    """How the card counts a mask, from its dtype and values alone: bool and
+    uint8 as they are, integer values 0..255 of any other dtype through
+    the byte route (counted by value, as the reference counts), anything
+    else a ValueError naming what the kernel cannot count exactly."""
+    if route in ("as_is", "uint8"):
+        assert tcoact.card_mask_route(dtype, vmin, vmax, integral) == route
+    else:
+        with pytest.raises(ValueError, match=route):
+            tcoact.card_mask_route(dtype, vmin, vmax, integral)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_stats_count_values_as_the_reference_does(dtype):
+    """A mask holding 2s and 3s counts by value on the CPU route, bit for
+    bit the reference's `CoActivationStats` (int64 sums, float32 MᵀM)."""
+    rng = np.random.default_rng(4)
+    m = rng.integers(0, 4, (40, 30)).astype(dtype)
+    js, ts = jcoact.CoActivationStats(30), tcoact.CoActivationStats(30, "cpu")
+    js.update(m)
+    ts.update(m)
+    np.testing.assert_array_equal(ts.counts_numpy(), js.counts)
+    np.testing.assert_array_equal(ts.pair_counts_numpy(), js.pair_counts)
+    assert ts.pair_counts_numpy().max() > m.shape[0]   # values, not bits
+
+
+def test_card_byte_conversion_reads_values_once():
+    """The card's conversion of another dtype (run here on CPU tensors):
+    integer values 0..255 come out as the same uint8 values, an empty block
+    as an empty uint8 block, and 0.5 / -1 / 256 / NaN raise."""
+    m = torch.tensor([[0, 2, 255], [3, 0, 1]], dtype=torch.int64)
+    for t in (m, m.float(), m.double()):
+        u = tcoact.CoActivationStats._as_bytes(t)
+        assert u.dtype == torch.uint8 and torch.equal(u.long(), m)
+    assert tcoact.CoActivationStats._as_bytes(m[:0]).dtype == torch.uint8
+    for bad in (0.5, -1.0, 256.0, float("nan")):
+        with pytest.raises(ValueError, match="0..255"):
+            tcoact.CoActivationStats._as_bytes(torch.tensor([[0.0, bad]]))

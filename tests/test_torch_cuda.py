@@ -244,6 +244,65 @@ def test_offload_server_runs_the_kernel_on_card(dev, dtype):
         assert margin < 2e-2, (h.uid, t, margin)
 
 
+def test_prefetch_offload_server_on_card(dev):
+    """`prefetch=True` on the card, its worker thread doing host work only:
+    with `lookahead="oracle"` (depth 0) the serial run's tokens and per-uid
+    flash I/O exactly; with lookahead predictors trained on the card
+    (`build_offload_runtime(train_lookahead=True)`) the serial tokens, and
+    per-uid I/O that sums to the engines' reads (the speculated neurons are
+    read too, so it is not the serial I/O, as in the reference). Every
+    dense FFN launched the fused kernel, the plain version never ran, and
+    after `close()` no worker thread is left."""
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, build_offload_runtime
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
+                     n_layers=3, vocab_size=128)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (5, 9, 7)]
+
+    def runtime(**kw):
+        return build_offload_runtime(model, params, calib_batch=(4, 32),
+                                     rng=np.random.default_rng(0),
+                                     device=dev, **kw)
+
+    def serve(rt, **kw):
+        server = InferenceServer(model, params, max_slots=3, max_len=32,
+                                 device=dev, mode="offload", offload=rt, **kw)
+        handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+                   for i, p in enumerate(prompts)]
+        ops.reset_counts()
+        server.drain()
+        ffn = ops.counts["sparse_ffn_segments_fused"]
+        assert ffn.plain_calls == 0
+        assert ffn.launches == server.stats.decode_steps * 3 > 0
+        server.close()
+        return [h.result for h in handles]
+
+    serial = serve(runtime())
+    before = threading.active_count()
+    oracle = serve(runtime(), prefetch=True, lookahead="oracle")
+    rt = runtime(train_lookahead=True)
+    assert len(rt.lookahead) == 2
+    assert rt.lookahead[0].w1.device == torch.device(dev)
+    trained = serve(rt, prefetch=True)
+    assert not any(t.name == "ripple-prefetch"
+                   for t in threading.enumerate())
+    assert threading.active_count() == before
+    for s, o, t in zip(serial, oracle, trained):
+        assert s.finish_reason == o.finish_reason == t.finish_reason
+        assert s.tokens == o.tokens == t.tokens
+        assert s.io_seconds == o.io_seconds > 0
+    reads = sum(t.io.seconds for e in rt.engines for t in e.history)
+    assert abs(sum(t.io_seconds for t in trained) - reads) <= 1e-12 * reads
+    summary = rt.io_summary()
+    assert (summary["worker_restarts"], summary["degraded_steps"]) == (0, 0)
+
+
 # -- paged decode attention ------------------------------------------------------
 
 PAGED_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -566,6 +625,33 @@ def test_coact_byte_values_that_would_overflow_int32(dev):
     assert torch.equal(coact_accumulate_cuda(ones),
                        torch.full((8, 8), float(BYTE_VALUE_TOKENS),
                                   device=dev))
+
+
+def test_coact_stats_count_integer_values_and_reject_fractions(dev):
+    """`CoActivationStats` on the card counts an int32 mask of values 0..3
+    by value, as the reference does (its numpy expressions:
+    `masks.astype(np.int64).sum(0)` and a float32 `m.T @ m`), exactly, and
+    a float mask holding 0.5, a negative value or one above 255 raises
+    instead of being binarised."""
+    from repro_torch.core.coactivation import CoActivationStats
+    m = np.random.default_rng(2).integers(0, 4, (300, 130)).astype(np.int32)
+    stats = CoActivationStats(130, device=dev)
+    ops.reset_counts()
+    stats.update(torch.from_numpy(m).to(dev))
+    stats.update(m.astype(np.float32))
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (2, 0)
+    f = m.astype(np.float32)
+    np.testing.assert_array_equal(stats.counts_numpy(),
+                                  2 * m.astype(np.int64).sum(axis=0))
+    np.testing.assert_array_equal(stats.pair_counts_numpy(),
+                                  (f.T @ f) + (f.T @ f))
+    for bad in (0.5, -1.0, 256.0):
+        b = np.zeros((4, 130), np.float32)
+        b[1, 7] = bad
+        with pytest.raises(ValueError, match="0..255"):
+            stats.update(b)
+    assert stats.n_tokens == 600
 
 
 def test_coact_kernel_rejects_what_it_does_not_take(dev):

@@ -107,6 +107,27 @@ def test_reference_pack_served_by_port_matches_reference(env, quantize,
     assert all(e.store.closed for e in server.offload.engines)
 
 
+def test_identity_int8_pack_serves_bundles_with_scales(env, tmp_path):
+    """An int8 pack with the identity layout goes the bundles path: the
+    staged int8 rows are dequantized with their staged scales on the
+    device, and the port gives the reference's tokens and per-uid I/O."""
+    path = str(tmp_path / "identity8.npack")
+    jbuild_pack(env["jmodel"], env["jparams"], path, calib_tokens=128,
+                calib_batch=4, calib_seqlen=32, use_placement=False,
+                quantize="int8")
+    env = dict(env, paths={"identity8": path})
+    jhandles, js = _reference(env, "identity8")
+    handles, server = _serve(InferenceServer, Request, env["model"],
+                             env["params"], pack_path=path, device="cpu")
+    assert server.offload.ffn_kernel == js["ffn_kernel"] == "bundles"
+    assert server.offload.engines[0].store.quantized
+    for h, jh, n in zip(handles, jhandles, NEW):
+        assert h.result.finish_reason == jh.result.finish_reason == "length"
+        assert len(h.result.tokens) == n
+        assert h.result.tokens == jh.result.tokens
+        assert h.result.io_seconds == jh.result.io_seconds > 0
+
+
 def _chaos_plans(mod, seed):
     return [mod.FaultPlan([mod.FaultEvent(0, "transient"),
                            mod.FaultEvent(1, "latency", delay_s=1e-4),
@@ -163,9 +184,13 @@ def test_from_pack_rejects_geometry_mismatch(env):
     with pytest.raises(ValueError, match="fault_plans covers"):
         OffloadedFFNRuntime.from_pack(env["cfg"], path, device="cpu",
                                       fault_plans=[FaultPlan()])
-    for kw in (dict(predictors=[None]), dict(lookahead=[None])):
-        with pytest.raises(NotImplementedError):
-            OffloadedFFNRuntime.from_pack(env["cfg"], path, device="cpu", **kw)
+    # predictors and lookahead are ported: from_pack hands them on
+    preds, la = [object(), object()], [object()]
+    with OffloadedFFNRuntime.from_pack(
+            env["cfg"], path, device="cpu", predictors=preds, lookahead=la,
+            lookahead_threshold=0.4, max_worker_restarts=3) as rt:
+        assert rt.predictors is preds and rt.lookahead is la
+        assert (rt.lookahead_threshold, rt.max_worker_restarts) == (0.4, 3)
 
 
 def test_pack_path_rules(env):
@@ -245,8 +270,15 @@ def test_pack_and_serve_clis_on_cpu(tmp_path, quantize):
                                              "--prompt-len", "6",
                                              "--new-tokens", "3"])
         assert [len(r.tokens) for r in results] == [3, 3]
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(geom + ["--prefetch"])
+    # --prefetch: the in-memory runtime trains its lookahead predictors
+    # and serves through the prefetch worker, with the serial CLI's tokens
+    serial = serve.main(geom + ["--mode", "offload", "--requests", "3",
+                                "--prompt-len", "8", "--new-tokens", "4"])
+    piped = serve.main(geom + ["--mode", "offload", "--prefetch",
+                               "--requests", "3", "--prompt-len", "8",
+                               "--new-tokens", "4"])
+    assert [r.tokens for r in piped] == [r.tokens for r in serial]
+    assert all(r.finish_reason == "length" for r in piped)
     with pytest.raises(SystemExit, match="requires --mode offload"):
         serve.main(geom + ["--pack", out])
     with pytest.raises(SystemExit, match="does not fit"):

@@ -174,21 +174,40 @@ def test_kernel_wrapper_never_falls_back():
 
 
 def test_unported_options_raise():
+    """Options of ported slices construct and run (prefetch, trained
+    predictors with oracle=False, lookahead training); pack_path keeps its
+    rules; model families that are not ported still raise."""
+    import dataclasses
+    import threading
+    from repro_torch.core.predictor import PredictorParams
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import build_offload_runtime
+    from repro_torch.serving.engine import Request, build_offload_runtime
     from repro_torch.serving.server import InferenceServer
-    cfg = _tiny_cfg()
+    cfg = dataclasses.replace(_tiny_cfg(), n_layers=2)
     model = build_model(cfg, device="cpu")
     params = model.init_params()
-    for kw in (dict(prefetch=True), dict(oracle=False)):
-        with pytest.raises(NotImplementedError):
-            InferenceServer(model, params, device="cpu", **kw)
+    runtime = build_offload_runtime(model, params, train_lookahead=True,
+                                    calib_batch=(2, 16), device="cpu")
+    assert runtime.lookahead is not None and len(runtime.lookahead) == 1
+    # a predictor that fires on every neuron: oracle=False serves the dense
+    # FFN's support
+    runtime.predictors = [PredictorParams(
+        torch.zeros((32, 4)), torch.zeros(4), torch.zeros((4, 128)),
+        torch.full((128,), 10.0))] * 2
+    prompt = np.arange(5, dtype=np.int32)
+    for kw in (dict(prefetch=True), dict(oracle=False),
+               dict(prefetch=True, oracle=False, lookahead="oracle")):
+        server = InferenceServer(model, params, device="cpu", max_len=16,
+                                 mode="offload", offload=runtime, **kw)
+        h = server.submit(Request(uid=0, prompt=prompt, max_new_tokens=3))
+        server.drain()
+        server.close()
+        assert h.result.finish_reason == "length"
+        assert len(h.result.tokens) == 3
+    assert not any(t.name == "ripple-prefetch" for t in threading.enumerate())
     # pack_path is ported: it needs offload mode (and no offload= runtime)
     with pytest.raises(ValueError, match="requires mode='offload'"):
         InferenceServer(model, params, device="cpu", pack_path="x.pack")
-    with pytest.raises(NotImplementedError):
-        build_offload_runtime(model, params, train_lookahead=True,
-                              device="cpu")
     with pytest.raises(ValueError, match="mixer kinds"):
         from repro_torch.configs import get_config
         build_model(get_config("xlstm-125m", reduced=True), device="cpu")
