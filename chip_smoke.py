@@ -175,6 +175,26 @@ Phases, in order (any failure raises and the script exits non-zero):
      servers' checks); with sparse_frac 1.0 the tokens equal the
      dense resident run's (margin rule as in 4). Breakdowns of the float32
      and the bf16 runs.
+ 15. families: the MoE, SSM and hybrid decoders, resident, random weights
+     from --seed made on the card and copied to the CPU, 4 requests x (32
+     + 16) tokens. granite-moe-1b-a400m at its published widths (24
+     layers, d_model 1024, 32 experts top-8 of width 512, vocab 49155,
+     float32) contiguous, paged (page 16, 16 pages) and on 8 slots (a
+     capacity of 4 an expert for 8 rows: experts overflow, counted on the
+     CPU run), with a breakdown of the paged run; xlstm-125m at its
+     published widths (12 layers, d_model 768); jamba-1.5-large-398b
+     reduced (4 layers, d_model 256: its widths do not fit one card) with
+     `swa=True`. Checks: every request finishes by length; paged launches
+     = decode steps x 24 and swa launches = decode steps x jamba's
+     attention sublayers, no plain call, no other attention kernel; the
+     tokens of the same server on the CPU (plain versions, the same
+     weights) unless the CPU run's top-2 margin at the first difference
+     is below 1e-3. Then expert placement at granite's router (1200
+     calibration and 400 serving routes of `synthetic_routing`, as
+     benchmarks/moe_expert_bench.py draws them, and within-expert masks of
+     width 512): one coact launch an update, no plain call, each count
+     matrix `torch.equal` to the plain version; reads per token identity
+     against linked, and seconds per search.
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -189,6 +209,7 @@ this one in turns, parent / this / this / parent, a process each.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -2593,6 +2614,272 @@ def cli_phase(dev, seed: int, tmp: str, reduced: bool) -> dict:
     return row
 
 
+# -- families phase --------------------------------------------------------------
+
+FAMILY_MARGIN = 1e-3        # card vs CPU tokens, as the other phases
+# benchmarks/moe_expert_bench.py:30-31: calibration and serving routes
+EXPERT_CALIB, EXPERT_SERVE = (1200, 11), (400, 99)
+EXPERT_NEURONS_SEED = 3
+
+
+def serve_family(model, params, reqs, max_len, rows=None, **kw):
+    """Serve `reqs` resident (all admitted in the first step: uid = slot),
+    recording each decode step's [max_slots, V] logits in `rows` when
+    given."""
+    import numpy as np
+    from repro_torch.serving.server import InferenceServer
+    server = InferenceServer(model, params, max_len=max_len,
+                             device=model.device, **kw)
+    if rows is not None:
+        decode = server._decode_resident
+
+        def recorded():
+            out = decode()
+            rows.append(np.asarray(out[0], np.float32))
+            return out
+        server._decode_resident = recorded
+    handles = [server.submit(r) for r in reqs]
+    server.drain()
+    sync(model.device)
+    server.close()
+    for h in handles:
+        assert h.result.finish_reason == "length", (h.uid, h.result)
+    return handles, server.stats
+
+
+def family_mismatches(handles, cpu_handles, rows, cpu_model, cpu_params,
+                      reqs, max_len, what: str, swa: bool = False):
+    """The card run's tokens against the CPU run's: a first difference is
+    accepted only where the CPU run's top-2 logit margin there is below
+    FAMILY_MARGIN (the prefill's token judged on a B=1 prefill, a decode
+    token on the CPU run's logits of that step and slot)."""
+    import numpy as np
+    out = []
+    for slot, (h, hc, r) in enumerate(zip(handles, cpu_handles, reqs)):
+        t = first_divergence(h.result.tokens, hc.result.tokens)
+        if t is None:
+            continue
+        if t == 0:
+            margin = decode_margin(cpu_model, cpu_params, r.prompt,
+                                   hc.result.tokens, 0, max_len, swa=swa)
+        else:
+            top2 = np.sort(rows[t - 1][slot])[-2:]
+            margin = float(top2[1] - top2[0])
+        out.append({"uid": h.uid, "step": t, "margin": margin})
+        emit({"token_mismatch": dict(out[-1], run=f"{what} card",
+                                     reference=f"{what} cpu")})
+        assert margin < FAMILY_MARGIN, out
+    return out
+
+
+@contextlib.contextmanager
+def counting_overflows(out):
+    """Append, for each MoE layer call of one decode step (one position a
+    row), the number of experts routed more rows than their capacity."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.moe_forward
+
+    def counting(p, x, cfg):
+        if x.shape[1] == 1:
+            _, _, sel = moe.route(p, x.reshape(-1, x.shape[-1]), cfg)
+            n = torch.bincount(sel.reshape(-1), minlength=cfg.moe.n_experts)
+            out.append(int((n > moe._capacity(sel.shape[0], cfg.moe)).sum()))
+        return real(p, x, cfg)
+    moe.moe_forward = counting
+    try:
+        yield
+    finally:
+        moe.moe_forward = real
+
+
+def family_serving(dev, seed: int, arch: str, reduced: bool, runs, n_requests,
+                   prompt_len, new_tokens) -> dict:
+    """One family's model (random weights from `seed`, made on the device
+    and copied to the CPU) served by each of `runs`: (label, server kw,
+    the kernel its attention goes through or None, the label of the CPU run
+    that computes the same function). The card runs go first, each with
+    the counts set to 0 just before it and read just after; its kernel
+    must have launched decode steps x the attention sublayers and the
+    plain version never, every other attention kernel not at all; its
+    tokens are the CPU run's (margin rule). The CPU runs count the MoE layers' overflowing experts
+    in decode (the same function as the card's)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request
+
+    cfg = get_config(arch, reduced=reduced)
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(params, "cpu")
+    rng = np.random.default_rng(seed + 5)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, prompt_len)
+                    .astype(np.int32), max_new_tokens=new_tokens)
+            for i in range(n_requests)]
+    max_len = prompt_len + new_tokens
+    n_attn = cfg.layer_kinds().count("attn")
+    # warm-up outside the measured runs (cuBLAS handles, allocator)
+    serve_family(model, params, [dataclasses.replace(
+        reqs[0], uid=10_000, max_new_tokens=2)], max_len, max_slots=1)
+    # the card runs first, then the CPU runs (whose threads would otherwise
+    # share the host with the next timed card run)
+    card = []
+    for label, kw, kernel, cpu_label in runs:
+        ops.reset_counts()
+        handles, st = serve_family(model, params, reqs, max_len, **kw)
+        card.append((handles, st, {k: (c.launches, c.plain_calls)
+                                   for k, c in ops.counts.items()}))
+    cpu_runs, launches, rows_out = {}, {}, []
+    for (label, kw, kernel, cpu_label), (handles, st, counts) in zip(runs,
+                                                                     card):
+        if cpu_label not in cpu_runs:
+            rows, overflows = [], []
+            cpu_kw = next(r[1] for r in runs if r[0] == cpu_label)
+            t0 = time.perf_counter()
+            with counting_overflows(overflows):
+                cpu_handles, _ = serve_family(cpu_model, cpu_params, reqs,
+                                              max_len, rows, **cpu_kw)
+            cpu_runs[cpu_label] = (cpu_handles, rows,
+                                   time.perf_counter() - t0, sum(overflows))
+        cpu_handles, rows, cpu_s, n_over = cpu_runs[cpu_label]
+        row = {"arch": arch, "run": label, "reduced": reduced,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "param_count": cfg.param_count(), "dtype": cfg.param_dtype,
+               "requests": n_requests, "prompt_len": prompt_len,
+               "new_tokens": new_tokens, "init_params_s": init_s,
+               "decode_steps": st.decode_steps,
+               "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+               "prefill_s_per_request": st.prefill_seconds / n_requests,
+               "kernel": kernel, "attention_sublayers": n_attn,
+               "counts": {k: v for k, v in counts.items() if any(v)},
+               "cpu_run": cpu_label, "cpu_serve_s": cpu_s,
+               "decode_overflowing_experts": n_over}
+        for name in ("paged_decode", "swa_decode"):
+            on, off = counts[name] if dev.type == "cuda" else counts[name][::-1]
+            if name == kernel:
+                assert off == 0 and on == st.decode_steps * n_attn > 0, row
+                launches[label] = on
+            else:
+                assert on == off == 0, row
+        row["mismatches_vs_cpu"] = family_mismatches(
+            handles, cpu_handles, rows, cpu_model, cpu_params, reqs, max_len,
+            f"{arch} {label}", swa=kw.get("swa", False))
+        emit({"families": row})
+        rows_out.append(row)
+    del cpu_params, cpu_model, cpu_runs
+    return {"model": model, "params": params, "reqs": reqs,
+            "max_len": max_len, "launches": launches, "rows": rows_out}
+
+
+def expert_placement_run(dev, seed: int, cfg) -> dict:
+    """`core.expert_placement` at `cfg`'s router (granite-moe: 32 experts,
+    top-8), its routes drawn as benchmarks/moe_expert_bench.py draws them,
+    then the two-level placement with within-expert neuron masks of the
+    expert width (512) from planted-cluster masks of the calibration
+    tokens. Counts set to 0 just before, read just after: one coact launch
+    an update, no plain call; each count matrix `torch.equal` to the plain
+    version on the same masks."""
+    import torch
+    from repro_torch.core import expert_placement as ep
+    from repro_torch.core.coactivation import CoActivationStats
+    from repro_torch.core.placement import identity_placement
+    from repro_torch.core.trace import SyntheticTraceConfig, synthetic_masks
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.coact import coact_accumulate_plain
+
+    E, k, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert
+    groups = max(2, E // 8)
+    calib = ep.synthetic_routing(EXPERT_CALIB[0], E, k, n_groups=groups,
+                                 seed=EXPERT_CALIB[1])
+    serve = ep.synthetic_routing(EXPERT_SERVE[0], E, k, n_groups=groups,
+                                 seed=EXPERT_SERVE[1])
+    token_masks = synthetic_masks(SyntheticTraceConfig(
+        n_neurons=f, seed=seed + EXPERT_NEURONS_SEED), EXPERT_CALIB[0])
+    neuron_masks = [ep.within_expert_masks(token_masks, calib, e)
+                    for e in range(E)]
+    sync(dev)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    pl = ep.search_expert_placement(calib, E, device=dev)
+    expert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, neuron_pls = ep.hierarchical_moe_placement(calib, neuron_masks, E,
+                                                  device=dev)
+    hier_s = time.perf_counter() - t0
+    coact = ops.counts["coact_accumulate"]
+    launches, plain_calls = coact.launches, coact.plain_calls
+    taken, other = ((launches, plain_calls) if dev.type == "cuda"
+                    else (plain_calls, launches))
+    n_updates = 2 + sum(len(m) > 0 for m in neuron_masks)
+    row = {"experts": E, "top_k": k, "expert_width": f,
+           "calibration_tokens": EXPERT_CALIB[0],
+           "serving_tokens": EXPERT_SERVE[0],
+           "coact_launches": launches, "plain_calls": plain_calls,
+           "expected_launches": n_updates,
+           "reads_per_token_identity": ep.expected_reads_per_token(
+               serve, E, identity_placement(E)),
+           "reads_per_token_linked": ep.expected_reads_per_token(
+               serve, E, pl),
+           "expert_search_s": expert_s,
+           "hierarchical_s": hier_s,
+           "neuron_search_s_per_expert": hier_s / E,
+           "neuron_modes": sorted({p.mode for p in neuron_pls if p})}
+    assert other == 0 and taken == n_updates, row
+    # the counts against the plain version on the same masks
+    for masks in [ep.routing_masks(calib, E)] + neuron_masks:
+        stats = CoActivationStats(masks.shape[1], device=dev)
+        stats.update(masks)
+        want = coact_accumulate_plain(torch.from_numpy(masks).to(dev))
+        assert torch.equal(stats.pair_counts, want), masks.shape
+    row["counts_equal_plain"] = 1 + E
+    assert row["reads_per_token_linked"] < row["reads_per_token_identity"]
+    emit({"expert_placement": row})
+    return {"launches": taken}
+
+
+FAMILY_PAGES = 16
+
+
+def families_phase(dev, seed: int, n_requests: int, prompt_len: int,
+                   new_tokens: int, reduced: bool) -> dict:
+    """granite-moe (published widths on the card) contiguous, paged and on
+    8 slots (capacity 4 an expert for 8 rows: overflow), with a breakdown
+    of the paged run; xlstm-125m (published widths) resident; jamba
+    (reduced) with `swa=True`; expert placement at granite's router."""
+    pages = dict(page_size=PAGE_SIZE, num_pages=FAMILY_PAGES)
+    granite = family_serving(dev, seed, "granite-moe-1b-a400m", reduced, [
+        ("contiguous", dict(max_slots=n_requests), None, "contiguous"),
+        ("paged", dict(max_slots=n_requests, **pages), "paged_decode",
+         "contiguous"),
+        ("8_slots", dict(max_slots=8), None, "8_slots")],
+        n_requests, prompt_len, new_tokens)
+    paged_ms = next(r["decode_ms_per_step"] for r in granite["rows"]
+                    if r["run"] == "paged")
+    breakdown_phase(dev, granite["model"], granite["params"], None,
+                    granite["reqs"], granite["max_len"],
+                    {"resident": paged_ms}, path="families_granite_paged",
+                    kernels=PAGED_KERNELS, **pages)
+    placement = expert_placement_run(dev, seed, granite["model"].cfg)
+    del granite["model"], granite["params"]
+    xlstm = family_serving(dev, seed, "xlstm-125m", reduced, [
+        ("resident", dict(max_slots=n_requests), None, "resident")],
+        n_requests, prompt_len, new_tokens)
+    jamba = family_serving(dev, seed, "jamba-1.5-large-398b", True, [
+        ("swa", dict(max_slots=n_requests, swa=True), "swa_decode", "swa")],
+        n_requests, prompt_len, new_tokens)
+    del xlstm, jamba["model"], jamba["params"]
+    return {"paged": granite["launches"]["paged"],
+            "swa": jamba["launches"]["swa"],
+            "coact": placement["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2675,6 +2962,8 @@ def main(argv=None) -> int:
     gkern = segment_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
     sp = sparse_phase(dev, args.seed, sl["model"], sl["params"], sl["reqs"],
                       sl["max_len"])
+    fam = families_phase(dev, args.seed, n_requests, prompt_len, new_tokens,
+                         reduced=args.cpu_rehearsal)
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
         return 3
@@ -2713,7 +3002,8 @@ def main(argv=None) -> int:
         "name": "paged_decode", "route": "cuda",
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
         "launches": pg["launches"]["offload_float32"],
-        "launches_by_run": pg["launches"],
+        "launches_by_run": {**pg["launches"],
+                            "families_granite_paged": fam["paged"]},
         "max_abs_err": max(c["max_abs_err"] for c in pkern["cases"]),
         "ms": paged_case["ms"],
         "device_cold_ms": paged_case["device_cold_ms"],
@@ -2729,6 +3019,8 @@ def main(argv=None) -> int:
         "name": "coact_accumulate", "route": "cuda",
         "source": COACT_SOURCE, "replaces": COACT_REPLACES,
         "launches": pk["launches"],
+        "launches_by_run": {"pack": pk["launches"],
+                            "families_expert_placement": fam["coact"]},
         "max_abs_err": max(c["max_abs_err"] for c in ckern["cases"]),
         "ms": coact_case["ms"],
         "device_cold_ms": coact_case["device_cold_ms"],
@@ -2751,7 +3043,8 @@ def main(argv=None) -> int:
         "name": "swa_decode", "route": "cuda",
         "source": SWA_SOURCE, "replaces": SWA_REPLACES,
         "launches": sw["launches"]["resident"],
-        "launches_by_run": sw["launches"],
+        "launches_by_run": {**sw["launches"],
+                            "families_jamba_swa": fam["swa"]},
         "max_abs_err": max(c["max_abs_err"] for c in skern["cases"]),
         "ms": swa_case["ms"],
         "device_cold_ms": swa_case["device_cold_ms"],

@@ -3,8 +3,10 @@
 `params_from_numpy` takes the reference's params pytree as nested dicts of
 numpy arrays (what `jax.tree_util.tree_map(np.asarray, params)` gives) and
 returns the port's params: the same leaf names and the same layouts
-(`w_up` [d, d_ff], `w_down` [d_ff, d], ...), with the stacked [G, ...] scan
-axis of `params["stack"]` unstacked into a list of G group dicts.
+(`w_up` [d, d_ff], `w_down` [d_ff, d], a MoE FFN's router [d, E] and
+expert weights [E, d, f], the SSM mixers' leaves, ...), with the stacked
+[G, ...] scan axis of `params["stack"]` unstacked into a list of G group
+dicts.
 `predictor_params_from_numpy` does the same for one activation predictor
 (`PredictorParams` w1, b1, w2, b2). Nothing here imports the reference
 package; it only reads arrays.
@@ -42,8 +44,9 @@ def _tree(tree: Any, fn) -> Any:
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
     """Reference params (numpy leaves) -> port params on `device` (default
-    cuda). Raises ValueError for model families the port does not serve and
-    for a stack whose leading axis is not the config's group count."""
+    cuda). Raises ValueError for encoder-decoder and VLM models, which the
+    port does not serve, and for a stack whose leading axis is not the
+    config's group count."""
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     G = cfg.n_layers // transformer.stack_period(cfg)

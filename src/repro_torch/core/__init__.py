@@ -8,12 +8,14 @@ Offline stage: `trace` (activation masks, disk shards) -> `coactivation`
 device model + neuron store), `engine` (the batched serving pipeline),
 `pipeline` (double-buffered I/O-compute overlap model), `predictor`
 (activation and lookahead predictors, trained on the device), `sparse_ffn`
-(FFN math over flash bundles, in torch).
+(FFN math over flash bundles, in torch), `expert_placement` (MoE expert
+order and within-expert neuron order from router traces, counted on the
+device).
 
 `collapse`, `placement`, `cache`, `storage`, `engine` and `pipeline` are
 framework-free numpy, kept as copies of the reference package so the two
-make identical decisions; `coactivation` gives the reference's bits because
-its counts are exact.
+make identical decisions, as is `expert_placement` around its counts;
+`coactivation` gives the reference's bits because its counts are exact.
 """
 from repro_torch.core.cache import (ArrayLinkingAlignedCache, ArrayS3FIFOCache,
                                     CacheStats, FIFOCache, LRUCache,
@@ -28,6 +30,11 @@ from repro_torch.core.collapse import (AdaptiveThreshold, BottleneckDetector,
                                        runs_from_positions)
 from repro_torch.core.engine import (BatchStepResult, EngineConfig,
                                      OffloadEngine, RequestStats, TokenStats)
+from repro_torch.core.expert_placement import (expected_reads_per_token,
+                                               expert_coactivation,
+                                               hierarchical_moe_placement,
+                                               search_expert_placement,
+                                               synthetic_routing)
 from repro_torch.core.pipeline import (IOScheduler, Stage, TokenTiming,
                                        overlapped_latency, serial_latency)
 from repro_torch.core.placement import (PlacementResult, frequency_placement,

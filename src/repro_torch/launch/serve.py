@@ -1,7 +1,10 @@
 """Serving command of the port: slot-based continuous batching
 (InferenceServer), resident or through the RIPPLE offload runtime (oracle
 masks -> batched engine step -> the fused segment FFN kernel), optionally
-through the layer-ahead prefetch worker, on the port's device.
+through the layer-ahead prefetch worker, on the port's device. Every
+decoder-only family serves resident (dense, MoE, SSM, hybrid: e.g.
+`--arch granite-moe-1b-a400m | xlstm-125m | jamba-1.5-large-398b`);
+offload covers dense models only.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --reduced \
       --requests 8 --prompt-len 32 --new-tokens 16 \

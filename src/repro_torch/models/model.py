@@ -1,11 +1,16 @@
-"""Model facade for the decoder-only dense models the port serves.
+"""Model facade for the decoder-only models the port serves: dense
+(attention + dense FFN), MoE (granite-moe), SSM (xLSTM: mLSTM / sLSTM
+blocks) and hybrid (jamba: Mamba + attention + MoE). Encoder-decoder and
+VLM models are not ported (ValueError).
 
 Entry points (functions of (params, batch), like the reference's):
   init_params(generator)                     — seeded parameter init
-  forward(params, batch, capture=False)      — logits (+ FFN captures)
+  forward(params, batch, capture=False)      — logits, MoE aux loss
+                                               (+ FFN captures)
   init_cache(batch, max_len, swa=False)      — contiguous KV cache (int8
                                                when cfg.kv_quant), or with
-                                               swa the sliding-window rings
+                                               swa the sliding-window rings;
+                                               SSM sublayers' states
   init_paged_cache(num_pages, page_size)     — paged KV arenas
   prefill(params, batch, cache, window=0)    — (logits_last, cache)
   decode_step(params, tokens, position, cache, page_tables=None, window=0)
@@ -81,7 +86,7 @@ class Model:
                    dtype=None) -> Any:
         """Per-slot caches: contiguous [batch, max_len] KV (int8 when
         `cfg.kv_quant`), or with `swa` float rings of `cfg.sliding_window`
-        slots."""
+        slots; an SSM sublayer's recurrent state."""
         return transformer.init_stack_cache(self.cfg, batch, max_len,
                                             self.device, swa=swa, dtype=dtype)
 
@@ -125,5 +130,5 @@ class Model:
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     """The model for `cfg` on `device` (default cuda; pass "cpu" to run on
-    the CPU). Raises ValueError for families this slice does not port."""
+    the CPU). Raises ValueError for encoder-decoder and VLM models."""
     return Model(cfg, device=device)

@@ -1,20 +1,21 @@
-"""Decoder stack: attention + dense FFN layers, run as a Python loop.
+"""Decoder stack: attention / SSM mixers + dense / MoE FFNs, run as a
+Python loop.
 
 The reference scans its stack with `lax.scan` over parameters stacked
-[G, ...] along a group axis (G = n_layers / period). The port keeps the
+[G, ...] along a group axis (G = n_layers / period P). The port keeps the
 same grouping but holds it as a list: `stack[g]` is group g's dict
 {"sub_j": sublayer params}, and caches mirror it (`cache[g]["sub_j"]` is a
-`KVCache`, a `QuantKVCache` when `cfg.kv_quant`, or a paged arena). For the
-dense decoder-only models the port serves, the period is 1, so group g is
-layer g.
+`KVCache`, a `QuantKVCache` when `cfg.kv_quant`, a ring, a paged arena,
+or for an SSM sublayer its recurrent state: `ssm.MambaState`,
+`MLSTMState` or `SLSTMState`). Mixer kinds: attention, Mamba, mLSTM,
+sLSTM; FFN kinds: dense, MoE (`models/moe.py`), none.
 
 Decode attention over a paged arena goes through
 `kernels.ops.paged_decode_attention`, over a sliding-window ring
 (`swa=True` caches) through `kernels.ops.swa_decode_attention`, and the
 predictor-driven `serve_sparse` decode FFN through
 `kernels.ops.sparse_ffn_segments` (the hand-written kernels on the card).
-Only attention mixers and dense FFNs are ported; SSM and MoE sublayers
-raise ValueError.
+Encoder-decoder and VLM models are not ported (ValueError).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models.kvcache import (KVCache, PagedKVCache,
                                         PagedQuantKVCache, QuantKVCache,
                                         SWACache, attend_full_cache,
@@ -57,29 +60,44 @@ def stack_period(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ValueError for configurations this slice does not serve."""
-    kinds, ffns = set(cfg.layer_kinds()), set(cfg.ffn_kinds())
+    """Raise ValueError for configurations the port does not serve."""
     if cfg.is_encdec or cfg.family == "vlm":
         raise ValueError(f"{cfg.arch_id}: encoder-decoder and VLM models are "
                          f"not ported to PyTorch yet")
-    if kinds != {"attn"}:
-        raise ValueError(f"{cfg.arch_id}: mixer kinds {sorted(kinds)} — only "
-                         f"attention sublayers are ported (SSM comes later)")
-    if not ffns <= {"dense", "none"}:
-        raise ValueError(f"{cfg.arch_id}: FFN kinds {sorted(ffns)} — only "
-                         f"dense FFNs are ported (MoE comes later)")
 
 
 # -- init ---------------------------------------------------------------------
 
-def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, ffn: str) -> Params:
-    p: Params = {"norm1": init_norm(cfg, gen.device),
-                 "mixer": init_attention(gen, cfg)}
+class _SSMKind(NamedTuple):
+    init: Callable
+    forward: Callable
+    decode_step: Callable
+    init_state: Callable
+
+
+_SSM = {k: _SSMKind(getattr(ssm, f"init_{k}"), getattr(ssm, f"{k}_forward"),
+                    getattr(ssm, f"{k}_decode_step"),
+                    getattr(ssm, f"{k}_init_state"))
+        for k in ("mamba", "mlstm", "slstm")}
+
+
+def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                   ffn: str) -> Params:
+    p: Params = {"norm1": init_norm(cfg, gen.device)}
+    if kind == "attn":
+        p["mixer"] = init_attention(gen, cfg)
+    elif kind in _SSM:
+        p["mixer"] = _SSM[kind].init(gen, cfg)
+    else:
+        raise ValueError(kind)
     if ffn == "dense":
         p["norm2"] = init_norm(cfg, gen.device)
         p["ffn"] = init_ffn(gen, cfg)
         if cfg.serve_sparse:
             p["ffn_pred"] = init_ffn_predictor(gen, cfg)
+    elif ffn == "moe":
+        p["norm2"] = init_norm(cfg, gen.device)
+        p["ffn"] = moe_lib.init_moe(gen, cfg)
     return p
 
 
@@ -87,39 +105,56 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig) -> List[Params]:
     check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
-    ffns = cfg.ffn_kinds()
-    return [{f"sub_{j}": _init_sublayer(gen, cfg, ffns[j]) for j in range(P)}
-            for _ in range(G)]
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    return [{f"sub_{j}": _init_sublayer(gen, cfg, kinds[j], ffns[j])
+             for j in range(P)} for _ in range(G)]
 
 
 # -- full-sequence forward ------------------------------------------------------
 
 class StackOutput(NamedTuple):
     x: torch.Tensor
-    aux_loss: torch.Tensor                     # scalar (0: no MoE ported)
+    aux_loss: torch.Tensor                     # scalar (MoE load balance)
     ffn_pre_act: Optional[torch.Tensor]        # [L_dense, B, T, d_ff] if captured
     ffn_inputs: Optional[torch.Tensor] = None  # [L_dense, B, T, d_model] if captured
+
+
+def _ffn_seq(sp: Params, h: torch.Tensor, cfg: ModelConfig, ffn: str,
+             capture: bool = False):
+    """A sublayer's FFN over a sequence: (y, pre-activation if `capture`
+    on a dense FFN, the normed input, MoE aux loss or None)."""
+    normed2 = apply_norm(sp["norm2"], h, cfg)
+    if ffn == "dense":
+        y, pre = ffn_forward(sp["ffn"], normed2, cfg, capture=capture)
+        return y, pre, normed2, None
+    y, aux = moe_lib.moe_forward(sp["ffn"], normed2, cfg)
+    return y, None, normed2, aux
 
 
 def stack_forward(stack: List[Params], x: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, window: int = 0,
                   capture_activations: bool = False) -> StackOutput:
     P = stack_period(cfg)
-    ffns = cfg.ffn_kinds()
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     captures: List[torch.Tensor] = []
     captures_h: List[torch.Tensor] = []
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     for group, j in ((g, j) for g in stack for j in range(P)):
-        sp, ffn = group[f"sub_{j}"], ffns[j]
+        sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
         normed = apply_norm(sp["norm1"], h, cfg)
-        mix, _, _ = attention_forward(sp["mixer"], normed, positions, cfg,
-                                      window=window)
+        if kind == "attn":
+            mix, _, _ = attention_forward(sp["mixer"], normed, positions, cfg,
+                                          window=window)
+        else:
+            mix = _SSM[kind].forward(sp["mixer"], normed, cfg)
         h = h + mix
-        if ffn == "dense":
-            normed2 = apply_norm(sp["norm2"], h, cfg)
-            y, pre = ffn_forward(sp["ffn"], normed2, cfg,
-                                 capture=capture_activations)
-            if capture_activations:
+        if ffn != "none":
+            y, pre, normed2, aux = _ffn_seq(sp, h, cfg, ffn,
+                                            capture=capture_activations)
+            if aux is not None:
+                aux_loss = aux_loss + aux
+            elif capture_activations:
                 captures.append(pre)
                 captures_h.append(normed2)
             h = h + y
@@ -127,30 +162,36 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
     if capture_activations and captures:
         pre_act = torch.stack(captures)
         ffn_inputs = torch.stack(captures_h)
-    return StackOutput(x=h, aux_loss=torch.zeros((), device=x.device),
-                       ffn_pre_act=pre_act, ffn_inputs=ffn_inputs)
+    return StackOutput(x=h, aux_loss=aux_loss, ffn_pre_act=pre_act,
+                       ffn_inputs=ffn_inputs)
 
 
 # -- caches ----------------------------------------------------------------------
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                      swa: bool = False, dtype=None) -> List[Params]:
-    """Per group, {"sub_j": KVCache [batch, max_len, KV, hd]}, the int8
-    `QuantKVCache` when `cfg.kv_quant`, or with `swa` a float `SWACache`
-    ring of `cfg.sliding_window` slots a row (whatever `max_len` and
-    `kv_quant` say, as in the reference)."""
+    """Per group, {"sub_j": cache}: for an attention sublayer a KVCache
+    [batch, max_len, KV, hd], the int8 `QuantKVCache` when `cfg.kv_quant`,
+    or with `swa` a float `SWACache` ring of `cfg.sliding_window` slots a
+    row (whatever `max_len` and `kv_quant` say, as in the reference); for
+    an SSM sublayer its zero recurrent state (Mamba's conv inputs in
+    `dtype`, default the compute dtype; every other leaf float32)."""
     check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
+    kinds = cfg.layer_kinds()
 
-    def one():
+    def one(kind):
+        if kind != "attn":
+            return _SSM[kind].init_state(batch, cfg, device,
+                                         dtype or cfg.dtype())
         if swa:
             return init_swa_cache(batch, cfg, device, dtype)
         if cfg.kv_quant:
             return init_quant_kv_cache(batch, max_len, cfg, device)
         return init_kv_cache(batch, max_len, cfg, device, dtype)
 
-    return [{f"sub_{j}": one() for j in range(P)} for _ in range(G)]
+    return [{f"sub_{j}": one(kinds[j]) for j in range(P)} for _ in range(G)]
 
 
 def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -192,26 +233,30 @@ def stack_prefill(stack: List[Params], x: torch.Tensor,
                   positions: torch.Tensor, cache: List[Params],
                   cfg: ModelConfig, window: int = 0
                   ) -> Tuple[torch.Tensor, List[Params]]:
-    """Dense prefill over the prompt; fills `cache` in place from slot 0."""
+    """Dense prefill over the prompt; fills `cache` in place from slot 0
+    (an SSM sublayer's entry becomes its state after the prompt)."""
     P = stack_period(cfg)
-    ffns = cfg.ffn_kinds()
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     h = x
     for group, group_cache, j in ((g, c, j) for g, c in zip(stack, cache)
                                   for j in range(P)):
-        sp, ffn = group[f"sub_{j}"], ffns[j]
+        sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
         normed = apply_norm(sp["norm1"], h, cfg)
-        mix, k, v = attention_forward(sp["mixer"], normed, positions, cfg,
-                                      window=window)
         cj = group_cache[f"sub_{j}"]
-        if isinstance(cj, SWACache):
-            swa_write(cj, k, v, positions)
+        if kind == "attn":
+            mix, k, v = attention_forward(sp["mixer"], normed, positions, cfg,
+                                          window=window)
+            if isinstance(cj, SWACache):
+                swa_write(cj, k, v, positions)
+            else:
+                (quant_kv_write if isinstance(cj, QuantKVCache)
+                 else kv_write)(cj, k, v, 0)
         else:
-            (quant_kv_write if isinstance(cj, QuantKVCache) else kv_write)(
-                cj, k, v, 0)
+            mix, group_cache[f"sub_{j}"] = _SSM[kind].forward(
+                sp["mixer"], normed, cfg, return_state=True)
         h = h + mix
-        if ffn == "dense":
-            y, _ = ffn_forward(sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)
-            h = h + y
+        if ffn != "none":
+            h = h + _ffn_seq(sp, h, cfg, ffn)[0]
     return h, cache
 
 
@@ -227,6 +272,9 @@ def _decode_positions(position, B: int, device) -> torch.Tensor:
     return pos.reshape(1, 1).expand(B, 1)
 
 
+_SSM_STATES = (ssm.MambaState, ssm.MLSTMState, ssm.SLSTMState)
+
+
 class PagedStep(NamedTuple):
     """What every paged attention sublayer of one decode step shares,
     computed once per step: the page tables, the per-row query positions,
@@ -236,12 +284,20 @@ class PagedStep(NamedTuple):
     targets: Tuple[torch.Tensor, torch.Tensor]
 
 
+def _first_attn_cache(cache_groups: List[Params]) -> Any:
+    """The first attention sublayer's cache (None for an attention-free
+    stack): its type says whether the step is paged, ringed or
+    contiguous."""
+    return next((c for g in cache_groups for c in g.values()
+                 if not isinstance(c, _SSM_STATES)), None)
+
+
 def _paged_step(position, page_tables: Optional[torch.Tensor],
                 cache_groups: List[Params]) -> Optional[PagedStep]:
     """The step's `PagedStep` when its caches are paged arenas (None for
     contiguous caches). Raises ValueError for a paged cache without page
     tables or per-slot positions."""
-    first = next(iter(cache_groups[0].values())) if cache_groups else None
+    first = _first_attn_cache(cache_groups)
     if not isinstance(first, (PagedKVCache, PagedQuantKVCache)):
         return None
     if page_tables is None:
@@ -258,10 +314,10 @@ def _paged_step(position, page_tables: Optional[torch.Tensor],
 
 def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
                   pos_arr: torch.Tensor, position, cfg: ModelConfig,
-                  paged: Optional[PagedStep] = None, window: int = 0,
-                  swa_cur: Optional[torch.Tensor] = None
+                  kind: str = "attn", paged: Optional[PagedStep] = None,
+                  window: int = 0, swa_cur: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Any]:
-    """One attention sublayer for a single decode token: (mix [B,1,d], cache).
+    """One sublayer's mixer for a single decode token: (mix [B,1,d], cache).
 
     `position` is a shared scalar or a per-slot [B] vector; the contiguous
     cache writes pick the matching (slice vs per-row scatter) variant. A
@@ -270,8 +326,12 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
     pos % W and attended through `ops.swa_decode_attention` with the
     per-row positions `swa_cur` and `window or cfg.sliding_window` (both
     ops: the plain version on the CPU, the hand-written kernel on the
-    card)."""
+    card). An SSM sublayer (`kind` other than "attn") takes one step of
+    its recurrence from its state `cj` instead."""
     normed = apply_norm(sp["norm1"], h, cfg)
+    if kind != "attn":
+        y, cj = _SSM[kind].decode_step(sp["mixer"], normed[:, 0], cj, cfg)
+        return y[:, None], cj
     q, k, v = _project_qkv(sp["mixer"], normed, normed, cfg)
     q = rope(q, pos_arr, cfg.rope_theta)
     k = rope(k, pos_arr, cfg.rope_theta)
@@ -332,7 +392,9 @@ def stack_decode_step_layerwise(
     every dense-FFN sublayer — the offload serving path computes those from
     flash bundle payloads instead of the resident weights. Without it a
     `cfg.serve_sparse` model takes the predictor's segment top-k FFN
-    (`sparse_ffn_decode`), else the dense FFN. `window` is the
+    (`sparse_ffn_decode`), else the dense FFN; a MoE sublayer always runs
+    `moe_forward` over the whole batch (its capacity counts every row).
+    SSM sublayers step their states. `window` is the
     sliding-window rings' attention window (0: `cfg.sliding_window`).
     `dense_layer_idx` counts dense FFN sublayers in (group, sublayer) order,
     the same order `stack_forward(capture_activations=True)` stacks
@@ -342,22 +404,25 @@ def stack_decode_step_layerwise(
     B = x.shape[0]
     pos_arr = _decode_positions(position, B, x.device)
     paged = _paged_step(position, page_tables, cache_groups)
-    first = next(iter(cache_groups[0].values())) if cache_groups else None
     # one [B] int32 copy of the positions per step, for every ring
     swa_cur = (pos_arr[:, 0].to(torch.int32)
-               if isinstance(first, SWACache) else None)
+               if isinstance(_first_attn_cache(cache_groups), SWACache)
+               else None)
     h = x
     dense_idx = 0
     P = stack_period(cfg)
-    ffns = cfg.ffn_kinds()
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     for group_params, group_cache in zip(param_groups, cache_groups):
         for j in range(P):
             sp = group_params[f"sub_{j}"]
             mix, group_cache[f"sub_{j}"] = _mixer_decode(
                 sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
-                paged, window, swa_cur)
+                kinds[j], paged, window, swa_cur)
             h = h + mix
-            if ffns[j] == "dense":
+            if ffns[j] == "moe":
+                h = h + moe_lib.moe_forward(
+                    sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)[0]
+            elif ffns[j] == "dense":
                 normed2 = apply_norm(sp["norm2"], h, cfg)
                 if ffn_override is not None:
                     y2 = ffn_override(dense_idx, normed2)

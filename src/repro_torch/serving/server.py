@@ -13,6 +13,13 @@ lifecycle (QUEUED -> PREFILL -> DECODE -> FINISHED), on PyTorch.
     activation-mask union, so a finished request stops incurring flash I/O;
   * streaming via `submit(..., on_token=...)` callbacks or `stream(handle)`.
 
+Resident mode serves every decoder-only family the port has (dense, MoE,
+SSM, hybrid); offload mode dense models only. A MoE layer's capacity is
+computed from all `max_slots` rows, free ones included, so free slots
+compete for expert slots: they are fed what the reference feeds them (the
+last token and position each held), which keeps tokens equal to the
+reference's where an expert overflows.
+
 Paged KV (`page_size`/`num_pages`): a shared page arena
 (`serving/paging.py`) replaces the per-slot contiguous caches; admission
 maps prompt prefixes shared with the registry or a live request,
@@ -770,15 +777,18 @@ class InferenceServer:
 
     def _write_slot(self, slot: int, small_cache: Any) -> None:
         """Copy a freshly prefilled B=1 cache into row `slot` of the pool,
-        in place: every leaf of the row, a ring's positions included, so a
-        reused slot keeps nothing of its last request. Stale KV beyond the
+        in place: every leaf of the row, a ring's positions and every leaf
+        of an SSM sublayer's recurrent state included, so a reused slot
+        keeps nothing of its last request. Stale KV beyond the
         new prompt is harmless: decode writes a position's KV before
         attending to it, and causal masking hides everything past the
-        current position."""
-        for big_g, small_g in zip(self._cache, small_cache):
-            for name, big in big_g.items():
-                for big_leaf, small_leaf in zip(big, small_g[name]):
-                    big_leaf[slot].copy_(small_leaf[0])
+        current position. Runs in inference mode, where decode replaces
+        an SSM state by tensors made in it."""
+        with torch.inference_mode():
+            for big_g, small_g in zip(self._cache, small_cache):
+                for name, big in big_g.items():
+                    for big_leaf, small_leaf in zip(big, small_g[name]):
+                        big_leaf[slot].copy_(small_leaf[0])
 
     def _emit(self, handle: RequestHandle, tok: int) -> None:
         now = self._clock()

@@ -1179,3 +1179,87 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- MoE / SSM / hybrid families -------------------------------------------------
+
+@pytest.mark.parametrize("T,N", [(1200, 32), (400, 16), (300, 512)])
+def test_coact_at_expert_widths_on_card(dev, T, N):
+    """Expert placement's counts: co-routing masks of granite-moe's 32 and
+    jamba's 16 experts (narrower than one tile of the kernel) and a
+    within-expert neuron mask of width 512, through `CoActivationStats` on
+    the card: `torch.equal` with the plain version, one launch an update,
+    and the reference's placement from the CPU's counts."""
+    from repro_torch.core import expert_placement as ep
+    from repro_torch.core.coactivation import CoActivationStats
+    from repro_torch.core.trace import SyntheticTraceConfig, synthetic_masks
+    from repro_torch.kernels.coact import coact_accumulate_plain
+    if N <= 32:
+        sel = ep.synthetic_routing(T, N, 8 if N == 32 else 2,
+                                   n_groups=max(2, N // 8), seed=11)
+        masks = ep.routing_masks(sel, N)
+    else:
+        masks = synthetic_masks(SyntheticTraceConfig(n_neurons=N, seed=3), T)
+    ops.reset_counts()
+    stats = CoActivationStats(N, device=dev)
+    stats.update(masks)
+    coact = ops.counts["coact_accumulate"]
+    assert (coact.launches, coact.plain_calls) == (1, 0)
+    m = torch.from_numpy(masks).to(dev)
+    assert torch.equal(stats.pair_counts, coact_accumulate_plain(m))
+    cpu = CoActivationStats(N, device="cpu")
+    cpu.update(masks)
+    np.testing.assert_array_equal(stats.pair_counts_numpy(),
+                                  cpu.pair_counts_numpy())
+    if N <= 32:
+        pl = ep.search_expert_placement(sel, N, device=dev)
+        np.testing.assert_array_equal(
+            pl.placement, ep.search_expert_placement(sel, N,
+                                                     device="cpu").placement)
+
+
+@pytest.mark.parametrize("arch,kernel,kw", [
+    ("granite-moe-1b-a400m", "paged_decode", dict(page_size=4, num_pages=24)),
+    ("jamba-1.5-large-398b", "swa_decode", dict(swa=True)),
+    ("xlstm-125m", None, {}),
+])
+def test_family_server_on_card(dev, arch, kernel, kw):
+    """Reduced granite-moe served paged, jamba with `swa=True` and xlstm
+    resident on the card give the same server's tokens on the CPU (plain
+    versions, the same weights), a first difference accepted only where
+    the CPU's top-2 logit margin there is below 1e-3; every attention
+    sublayer of every decode step went through the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.server import InferenceServer
+    cfg = get_config(arch, reduced=True, d_model=64, vocab_size=128,
+                     sliding_window=8)
+    n_attn = cfg.layer_kinds().count("attn")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (7, 12, 5)]
+    params_cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+
+    def serve(device):
+        model = build_model(cfg, device=device)
+        server = InferenceServer(model, _to(params_cpu, device), max_slots=2,
+                                 max_len=24, device=device, **kw)
+        handles = [server.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+                   for i, p in enumerate(prompts)]
+        ops.reset_counts()
+        server.drain()
+        return [h.result.tokens for h in handles], server.stats.decode_steps
+
+    cpu_tokens, _ = serve("cpu")
+    tokens, steps = serve(dev)
+    if kernel is not None:
+        c = ops.counts[kernel]
+        assert (c.launches, c.plain_calls) == (steps * n_attn, 0)
+    cpu_model = build_model(cfg, device="cpu")
+    for prompt, got, want in zip(prompts, tokens, cpu_tokens):
+        t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if t is not None:
+            assert _top2_margin(cpu_model, params_cpu, prompt, want, t,
+                                swa=kw.get("swa", False)) < 1e-3

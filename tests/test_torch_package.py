@@ -208,9 +208,16 @@ def test_unported_options_raise():
     # pack_path is ported: it needs offload mode (and no offload= runtime)
     with pytest.raises(ValueError, match="requires mode='offload'"):
         InferenceServer(model, params, device="cpu", pack_path="x.pack")
-    with pytest.raises(ValueError, match="mixer kinds"):
-        from repro_torch.configs import get_config
-        build_model(get_config("xlstm-125m", reduced=True), device="cpu")
+    # encoder-decoder and VLM models are not ported: the model, the weight
+    # loader and the server refuse them
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    for arch in ("seamless-m4t-medium", "internvl2-26b"):
+        cfg = get_config(arch, reduced=True)
+        with pytest.raises(ValueError, match="encoder-decoder and VLM"):
+            build_model(cfg, device="cpu")
+        with pytest.raises(ValueError, match="encoder-decoder and VLM"):
+            params_from_numpy({"stack": {}}, cfg, device="cpu")
 
 
 def test_generator_init_is_seeded():
