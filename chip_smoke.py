@@ -195,6 +195,33 @@ Phases, in order (any failure raises and the script exits non-zero):
      width 512): one coact launch an update, no plain call, each count
      matrix `torch.equal` to the plain version; reads per token identity
      against linked, and seconds per search.
+ 16. encdec: seamless-m4t-medium at its published widths (12 + 12 layers,
+     d_model 1024, vocab 256206, float32, random weights from --seed),
+     4 rows of 1024 seeded stub frames and 32-token prompts, 16 greedy
+     tokens through `Model.prefill` / `decode_step` (the shared scalar
+     position), with a contiguous cache and with `swa=True` (8192-slot
+     rings). Checks: swa launches = 15 steps x 12 layers = 180 and no
+     plain call (counts set to 0 just before the swa run); the kernel =
+     its plain version on the last call's live rings (1e-5); swa tokens =
+     contiguous tokens (margin rule as in 12) and both = the CPU's on 2
+     rows (the same weights; margin 1e-3). Prefill s and decode ms a step.
+ 17. vlm: internvl2-26b at its published widths cut to 2 of 48 layers
+     (d_model 6144, 48 / 8 heads, d_ff 16384, vocab 92553), 4 rows of 256
+     patch features + 32 tokens, the same runs and checks (swa launches
+     = 15 x 2, per-row cur).
+ 18. train: opt-350m at its published widths (float32, remat): one
+     `make_train_step` step at 2 x 64 from the same params on the card
+     and on the CPU (loss 1e-4 and grad norm 1e-3 relative; each leaf's
+     clipped gradient within 1e-2 of the CPU's in relative L2,
+     `TRAIN_GRAD_L2_TOL`; the updated params equal AdamW on the CPU over
+     the card's gradients to 1e-6, `TRAIN_PARAM_TOL`), 10 steps of
+     8 x 128 synthetic-corpus tokens (every loss finite, the last below
+     the first; ms a step as the median of steps 3 to 10, tokens a
+     second, peak memory), then
+     `launch.train.main` on reduced granite-3-2b: 6 steps with a
+     checkpoint every 3, then `--steps 8 --resume`, which starts at step 6
+     from the saved state bit for bit with the schedule's lr at step 7.
+     The three phases' seconds are printed.
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -2045,6 +2072,17 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+def leaf_paths(tree, prefix: str = "") -> list:
+    """'/'-joined paths of a params tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [q for i, v in enumerate(tree)
+                for q in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
 def sparse_phase(dev, seed: int, model, params, reqs, max_len) -> dict:
     """`cfg.serve_sparse` resident decode of the slice's model and requests
     (counts set to 0 just before the card run, read just after) against
@@ -2880,6 +2918,403 @@ def families_phase(dev, seed: int, n_requests: int, prompt_len: int,
             "coact": placement["launches"]}
 
 
+# -- encdec / vlm phases ---------------------------------------------------------
+
+GEN_NEW_TOKENS = 16           # greedy tokens a row: a prefill + 15 steps
+GEN_CPU_ROWS = 2              # rows the CPU reruns (the time budget)
+VLM_LAYERS = 2                # internvl2-26b's depth on the card (of 48)
+
+
+@contextlib.contextmanager
+def capturing_swa(last):
+    """Keep in `last` the arguments of the latest `ops.swa_decode_attention`
+    call (the query and the live rings it attended, not copies)."""
+    from repro_torch.kernels import ops
+    real = ops.swa_decode_attention
+
+    def recording(*args, **kw):
+        last[:] = [args, kw]
+        return real(*args, **kw)
+    ops.swa_decode_attention = recording
+    try:
+        yield
+    finally:
+        ops.swa_decode_attention = real
+
+
+def greedy_generate(model, params, batch, n_new: int, swa: bool) -> dict:
+    """Prefill `batch` and decode `n_new - 1` greedy steps at the shared
+    scalar position (the prefix, if any, comes first): tokens [B, n_new],
+    each step's top-2 logit margins [n_new, B], prefill seconds and decode
+    ms a step (host clock, synchronised)."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    dev = model.device
+    B, S = batch["tokens"].shape
+    prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        cache = model.init_cache(B, prefix + S + n_new, swa=swa)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        rows = [logits[:, -1]]
+        tok = rows[-1].argmax(-1)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(n_new - 1):
+            logits, cache = model.decode_step(params, tok[:, None],
+                                              prefix + S + i, cache)
+            rows.append(logits[:, 0])
+            tok = rows[-1].argmax(-1)
+            toks.append(tok)
+        sync(dev)
+        decode_s = time.perf_counter() - t0
+        top2 = torch.topk(torch.stack(rows).float(), 2, dim=-1).values
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "margins": (top2[..., 0] - top2[..., 1]).cpu().numpy(),
+            "prefill_s": prefill_s,
+            "decode_ms_per_step": 1e3 * decode_s / max(n_new - 1, 1),
+            "finite": bool(np.isfinite(top2.cpu().numpy()).all())}
+
+
+def token_mismatches(run: dict, ref: dict, margin: float, what: str,
+                     ref_name: str, rows=None):
+    """`run`'s greedy tokens against `ref`'s, row by row (the first `rows`
+    rows): a first difference is accepted only where `ref`'s top-2 logit
+    margin at that step is below `margin`."""
+    out = []
+    n = rows or ref["tokens"].shape[0]
+    for b in range(n):
+        t = first_divergence(list(run["tokens"][b]), list(ref["tokens"][b]))
+        if t is None:
+            continue
+        out.append({"row": b, "step": t,
+                    "margin": float(ref["margins"][t, b]), "run": what,
+                    "reference": ref_name})
+        emit({"token_mismatch": out[-1]})
+        assert out[-1]["margin"] < margin, out
+    return out
+
+
+def generation_phase(dev, seed: int, phase: str, arch: str, reduced: bool,
+                     **overrides) -> dict:
+    """`arch` (random weights from `seed`, made on the device) generating
+    GEN_NEW_TOKENS greedy tokens for 4 rows of seeded stub features and
+    32-token prompts through `Model.prefill` / `decode_step`, with a
+    contiguous cache and with `swa=True` rings. The counts are set to 0 just
+    before the swa run and read just after: swa launches = decode steps x
+    attention layers, no plain call. The kernel equals its plain version on
+    the last call's live rings (1e-5). swa tokens equal the contiguous
+    run's and both the CPU's on GEN_CPU_ROWS rows (the same weights, plain
+    versions), unless the reference run's top-2 margin at the first
+    difference is below SWA_MARGIN / FAMILY_MARGIN."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.swa_decode import (swa_decode_attention_cuda,
+                                                swa_decode_attention_plain)
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_param_count
+
+    cfg = get_config(arch, reduced=reduced, **overrides)
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 16)
+    B = REQUESTS
+    feats = rng.standard_normal((B, cfg.n_prefix_tokens, cfg.d_frontend),
+                                dtype=np.float32)
+    batch_np = {"tokens": rng.integers(0, cfg.vocab_size, (B, PROMPT_LEN))
+                .astype(np.int64),
+                ("frames" if cfg.is_encdec else "patch_feats"): feats}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    n_attn = (cfg.n_layers if cfg.is_encdec
+              else cfg.layer_kinds().count("attn"))
+    # warm-up outside the measured runs (cuBLAS handles, allocator)
+    greedy_generate(model, params, {k: v[:1] for k, v in batch.items()}, 2,
+                    swa=False)
+    contiguous = greedy_generate(model, params, batch, GEN_NEW_TOKENS,
+                                 swa=False)
+    last = []
+    ops.reset_counts()
+    with capturing_swa(last):
+        swa = greedy_generate(model, params, batch, GEN_NEW_TOKENS, swa=True)
+    c = ops.counts["swa_decode"]
+    launches, plain = ((c.launches, c.plain_calls) if dev.type == "cuda"
+                       else (c.plain_calls, c.launches))
+    want = (GEN_NEW_TOKENS - 1) * n_attn
+    row = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "param_count": tree_param_count(params),
+           "dtype": cfg.param_dtype, "rows": B, "prompt_len": PROMPT_LEN,
+           "prefix": cfg.n_prefix_tokens, "d_frontend": cfg.d_frontend,
+           "new_tokens": GEN_NEW_TOKENS, "window": cfg.sliding_window,
+           "init_params_s": init_s, "swa_launches": launches,
+           "swa_plain_calls": plain, "expected_launches": want}
+    for name, run in (("contiguous", contiguous), ("swa", swa)):
+        row[f"{name}_prefill_s"] = run["prefill_s"]
+        row[f"{name}_decode_ms_per_step"] = run["decode_ms_per_step"]
+        assert run["finite"], (name, row)
+    assert plain == 0 and launches == want, row
+    # the kernel against its plain version on the live rings of the last
+    # call (these launches come after the counts were read)
+    args, kw = last
+    if dev.type == "cuda":
+        out = swa_decode_attention_cuda(*args, **kw)
+        ref = swa_decode_attention_plain(*args, **kw)
+        row["kernel_vs_plain_max_abs_err"] = float(
+            (out.float() - ref.float()).abs().max())
+        assert torch.allclose(out, ref, rtol=SWA_TOL["float32"],
+                              atol=SWA_TOL["float32"]), row
+    row["swa_vs_contiguous"] = token_mismatches(
+        swa, contiguous, SWA_MARGIN, "swa", "contiguous")
+    # the same weights on the CPU, GEN_CPU_ROWS rows, contiguous
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(params, "cpu")
+    t0 = time.perf_counter()
+    cpu = greedy_generate(cpu_model, cpu_params,
+                          {k: v[:GEN_CPU_ROWS].cpu() for k, v in batch.items()},
+                          GEN_NEW_TOKENS, swa=False)
+    row["cpu_s"] = time.perf_counter() - t0
+    row["cpu_rows"] = GEN_CPU_ROWS
+    for name, run in (("contiguous", contiguous), ("swa", swa)):
+        row[f"{name}_vs_cpu"] = token_mismatches(
+            run, cpu, FAMILY_MARGIN, f"card {name}", "cpu", GEN_CPU_ROWS)
+    del cpu_params, cpu_model, params, model
+    emit({phase: row})
+    return {"launches": launches}
+
+
+# -- train phase ------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 128
+CHECK_BATCH, CHECK_SEQ = 2, 64
+TRAIN_LR = 1e-3
+# card vs CPU on one step: loss 1e-4 and grad norm 1e-3 relative, each
+# leaf's clipped gradient (its first moment over 1 - b1) within
+# TRAIN_GRAD_L2_TOL of the CPU's in relative L2, and the card's updated
+# params equal to AdamW on the CPU over the card's own first moments to
+# TRAIN_PARAM_TOL (elementwise float32 arithmetic). A params check against
+# the CPU's step itself would hold nothing: AdamW's first update is
+# lr * g / (|g| + eps), within 2 lr of any other first step.
+TRAIN_GRAD_L2_TOL = 1e-2
+TRAIN_PARAM_TOL = 1e-6
+
+
+def one_step_check(dev, model, params, opt_cfg, seed: int) -> dict:
+    """One train step at CHECK_BATCH x CHECK_SEQ from `params` on the card
+    and on the CPU (copies of the same params): loss, grad norm, each
+    leaf's clipped gradient, and the update rule on the card."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, make_data_iter
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import adamw_update, init_adamw
+    from repro_torch.training.train import TrainState, make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = model.cfg
+    batch = next(make_data_iter(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=CHECK_SEQ, batch_size=CHECK_BATCH,
+        seed=seed + 18), device="cpu"))
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = to_device(params, "cpu")
+    out = {}
+    for name, m, p in (("card", model, params), ("cpu", cpu_model,
+                                                 cpu_params)):
+        step = make_train_step(m, opt_cfg)
+        t0 = time.perf_counter()
+        state, metrics = step(TrainState(p, init_adamw(p, opt_cfg)),
+                              {k: v.to(m.device) for k, v in batch.items()})
+        sync(m.device)
+        out[name] = (state, {k: float(v) for k, v in metrics.items()},
+                     time.perf_counter() - t0)
+    (cs, cm, card_s), (ps, pm, cpu_s) = out["card"], out["cpu"]
+    # from zero moments, mu = (1 - b1) * the clipped gradient
+    grad_l2 = {}
+    for path, a, b in zip(leaf_paths(cs.opt.mu), tree_leaves(cs.opt.mu),
+                          tree_leaves(ps.opt.mu)):
+        a, b = a.cpu().float(), b.float()
+        grad_l2[path] = float((a - b).norm()
+                              / max(float(b.norm()), 1e-30))
+    worst_leaf = max(grad_l2, key=grad_l2.get)
+    # the card's clipped gradients through AdamW on the CPU, unclipped
+    card_grads = tree_map(lambda mu: mu.cpu().float() / (1 - opt_cfg.b1),
+                          cs.opt.mu)
+    redo, _, _ = adamw_update(
+        card_grads, init_adamw(cpu_params, opt_cfg), cpu_params,
+        dataclasses.replace(opt_cfg, grad_clip_norm=float("inf")))
+    redo_err = max(float((a.cpu().float() - r.float()).abs().max())
+                   for a, r in zip(tree_leaves(cs.params), tree_leaves(redo)))
+    row = {"check_batch": CHECK_BATCH, "check_seq": CHECK_SEQ,
+           "loss_card": cm["loss"], "loss_cpu": pm["loss"],
+           "grad_norm_card": cm["grad_norm"], "grad_norm_cpu": pm["grad_norm"],
+           "lr": cm["lr"], "grad_max_leaf_l2_rel": grad_l2[worst_leaf],
+           "grad_worst_leaf": worst_leaf,
+           "grad_l2_tol": TRAIN_GRAD_L2_TOL,
+           "params_vs_cpu_adamw_on_card_grads": redo_err,
+           "card_step_s": card_s, "cpu_step_s": cpu_s}
+    assert np.isclose(cm["loss"], pm["loss"], rtol=1e-4, atol=0), row
+    assert np.isclose(cm["grad_norm"], pm["grad_norm"], rtol=1e-3,
+                      atol=0), row
+    assert grad_l2[worst_leaf] <= TRAIN_GRAD_L2_TOL, row
+    assert redo_err <= TRAIN_PARAM_TOL, row
+    return row
+
+
+def launch_train_check(dev, tmp: str) -> dict:
+    """`launch.train.main` on the device at its default, reduced
+    granite-3-2b (its `--arch` takes the reference's assigned configs,
+    which do not list opt-350m): 6 steps with a checkpoint every 3, then
+    `--steps 8 --resume` on that checkpoint. The second call starts at step
+    6 from the saved state (bit for bit) with the schedule's lr at step
+    7."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.optimizer import AdamWConfig, cosine_schedule
+    from repro_torch.utils import tree_leaves
+
+    ck = os.path.join(tmp, "train", "state.npz")
+    argv = ["--arch", "granite-3-2b", "--reduced", "--checkpoint", ck,
+            "--device", str(dev)]
+    saved, loaded = [], []
+    real_save, real_load = (launch_train.save_checkpoint,
+                            launch_train.load_checkpoint)
+
+    def save(path, state, meta=None):
+        saved.append((meta["step"], [t.cpu().clone()
+                                     for t in tree_leaves(state)]))
+        return real_save(path, state, meta)
+
+    def load(path, like):
+        state, meta = real_load(path, like)
+        loaded.append([t.cpu().clone() for t in tree_leaves(state)])
+        return state, meta
+    launch_train.save_checkpoint, launch_train.load_checkpoint = save, load
+    try:
+        t0 = time.perf_counter()
+        first = launch_train.main(argv + ["--steps", "6",
+                                          "--checkpoint-every", "3"])
+        first_s = time.perf_counter() - t0
+        saved_state = saved[-1]
+        second = launch_train.main(argv + ["--steps", "8", "--resume"])
+    finally:
+        launch_train.save_checkpoint, launch_train.load_checkpoint = (
+            real_save, real_load)
+    # on the device the trainer ran on (the card's cos is not the CPU's to
+    # the last bit)
+    lr7 = float(cosine_schedule(AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                                            total_steps=8),
+                                torch.tensor(7, dtype=torch.int32,
+                                             device=dev)))
+    same = len(loaded) == 1 and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(saved_state[1], loaded[0]))
+    row = {"first_steps": [h["step"] for h in first],
+           "saves": [s for s, _ in saved], "resumed_steps":
+           [h["step"] for h in second], "loaded_equals_saved": same,
+           "first_lr_after_resume": second[0]["lr"], "schedule_lr_at_7": lr7,
+           "first_call_s": first_s}
+    assert row["first_steps"] == list(range(6)), row
+    assert saved_state[0] == 6 and row["saves"][:3] == [3, 6, 6], row
+    assert row["resumed_steps"] == [6, 7] and same, row
+    assert second[0]["lr"] == lr7, row
+    return row
+
+
+def train_breakdown(dev, step, state, batches, ms_per_step: float):
+    """Where a train step's time goes: `batches` more steps under
+    `torch.profiler` (CUDA activity): device ms a step, the idle share
+    against the profiled wall and against the unprofiled step, device ops
+    a step and the top kernels. None on the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return None
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, metrics = step(state, b)
+            float(metrics["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    n = len(batches)
+    device = {e.key: (e.self_device_time_total / 1e3 / n, e.count / n)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+    device_ms = sum(t for t, _ in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"profiled_steps": n, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms,
+            "idle_share_vs_own_wall": 1 - device_ms / wall_ms,
+            "idle_share_vs_unprofiled": 1 - device_ms / ms_per_step,
+            "device_ops_per_step": sum(c for _, c in device.values()),
+            "top_device_ms_per_step": {k: v[0] for k, v in top}}
+
+
+def train_phase(dev, seed: int, reduced: bool, tmp: str) -> dict:
+    """opt-350m at its published widths (float32, remat as the config
+    says): the one-step card-vs-CPU check, then TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ synthetic-corpus tokens (every loss finite, the
+    last below the first; ms a step as the median of steps 3 to 10, tokens
+    a second, peak memory), a profiled breakdown of two more steps, then
+    `launch.train` with a checkpoint and a resume."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_data_iter
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.train import TrainState, make_train_step
+    from repro_torch.utils import tree_param_count
+
+    cfg = get_config("opt-350m", reduced=reduced)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    row = {"arch": cfg.arch_id, "reduced": reduced, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "remat": cfg.remat, "param_count": tree_param_count(params),
+           "dtype": cfg.param_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           **one_step_check(dev, model, params, opt_cfg, seed)}
+    data = make_data_iter(DataConfig(vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                                     seed=seed), device=dev)
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+    step = make_train_step(model, opt_cfg)
+    state = TrainState(params, init_adamw(params, opt_cfg))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for b in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))     # synchronises
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(times[2:])
+    row.update(losses=losses, step_ms=[1e3 * t for t in times],
+               ms_per_step=ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None))
+    assert all(math.isfinite(x) for x in losses), row
+    assert losses[-1] < losses[0], row
+    row["breakdown"] = train_breakdown(dev, step, state, batches[:2], ms)
+    del state, params, model, batches
+    row["launch_train"] = launch_train_check(dev, tmp)
+    emit({"train": row})
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2964,6 +3399,22 @@ def main(argv=None) -> int:
                       sl["max_len"])
     fam = families_phase(dev, args.seed, n_requests, prompt_len, new_tokens,
                          reduced=args.cpu_rehearsal)
+    seconds = {}
+    t0 = time.perf_counter()
+    ed = generation_phase(dev, args.seed, "encdec", "seamless-m4t-medium",
+                          reduced=args.cpu_rehearsal)
+    seconds["encdec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vl = generation_phase(dev, args.seed, "vlm", "internvl2-26b",
+                          reduced=args.cpu_rehearsal,
+                          **({} if args.cpu_rehearsal
+                             else {"n_layers": VLM_LAYERS}))
+    seconds["vlm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        train_phase(dev, args.seed, args.cpu_rehearsal, tmp)
+    seconds["train"] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
         return 3
@@ -3044,7 +3495,9 @@ def main(argv=None) -> int:
         "source": SWA_SOURCE, "replaces": SWA_REPLACES,
         "launches": sw["launches"]["resident"],
         "launches_by_run": {**sw["launches"],
-                            "families_jamba_swa": fam["swa"]},
+                            "families_jamba_swa": fam["swa"],
+                            "encdec_swa": ed["launches"],
+                            "vlm_swa": vl["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in skern["cases"]),
         "ms": swa_case["ms"],
         "device_cold_ms": swa_case["device_cold_ms"],

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -35,6 +36,17 @@ def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (ROADMAP §3). A no-op cast when the dtypes agree."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def maybe_checkpoint(cfg: ModelConfig, fn, *args):
+    """`fn(*args)`, rematerialised in the backward pass when `cfg.remat`
+    and autograd is recording (the reference's `jax.checkpoint` around a
+    scanned layer): the same function, its activations recomputed instead
+    of kept."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # -- norms -------------------------------------------------------------------
@@ -78,7 +90,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 # -- attention ----------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> Params:
+    """q/k/v/o projections; q/k/v biases when `cfg.qkv_bias`, except on a
+    cross-attention block (`cross`), which never has them."""
     d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.pdtype()
     std = d ** -0.5
@@ -88,7 +103,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wv": _normal(gen, (d, KV * hd), dt, std),
         "wo": _normal(gen, (H * hd, d), dt, (H * hd) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=gen.device)
     return p
@@ -153,6 +168,34 @@ def attention_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     out = gqa_attend(q, k, v, positions, positions, causal=causal,
                      window=window)
     return out @ p["wo"], k, v
+
+
+def cross_attention_forward(p: Params, x: torch.Tensor,
+                            memory_k: torch.Tensor, memory_v: torch.Tensor,
+                            cfg: ModelConfig) -> torch.Tensor:
+    """Attention of x [B, T, d] over the encoder memory's K/V [B, S, KV, hd]
+    (from `project_memory_kv`): no rope (every position 0), not causal.
+    Like `attention_forward`, the plain [T, S] score matrix at any length
+    (the reference takes its chunked flash form past 2048 positions)."""
+    B, T = x.shape[0], x.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    S = memory_k.shape[1]
+    zeros_q = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    zeros_k = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    out = gqa_attend(q, memory_k, memory_v, zeros_q, zeros_k, causal=False)
+    return out @ p["wo"]
+
+
+def project_memory_kv(p: Params, memory: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory [B, S, d] through a cross-attention block's k / v
+    projections: ([B, S, KV, hd], [B, S, KV, hd])."""
+    B, S = memory.shape[0], memory.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (memory @ p["wk"]).reshape(B, S, KV, hd)
+    v = (memory @ p["wv"]).reshape(B, S, KV, hd)
+    return k, v
 
 
 # -- FFN -----------------------------------------------------------------------

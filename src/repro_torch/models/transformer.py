@@ -15,7 +15,8 @@ Decode attention over a paged arena goes through
 (`swa=True` caches) through `kernels.ops.swa_decode_attention`, and the
 predictor-driven `serve_sparse` decode FFN through
 `kernels.ops.sparse_ffn_segments` (the hand-written kernels on the card).
-Encoder-decoder and VLM models are not ported (ValueError).
+The encoder-decoder stack is `models/encdec.py`; a VLM's backbone is
+this stack.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        attention_forward, ffn_forward,
                                        init_attention, init_ffn,
                                        init_ffn_predictor, init_norm,
-                                       promoted_matmul, rope,
+                                       maybe_checkpoint, promoted_matmul,
+                                       rope,
                                        sparse_ffn_decode)
 
 Params = Dict[str, Any]
@@ -57,13 +59,6 @@ def stack_period(cfg: ModelConfig) -> int:
            all(ffns[i] == ffns[i % P] for i in range(L)):
             return P
     return L
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ValueError for configurations the port does not serve."""
-    if cfg.is_encdec or cfg.family == "vlm":
-        raise ValueError(f"{cfg.arch_id}: encoder-decoder and VLM models are "
-                         f"not ported to PyTorch yet")
 
 
 # -- init ---------------------------------------------------------------------
@@ -102,7 +97,6 @@ def _init_sublayer(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> List[Params]:
-    check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
@@ -134,30 +128,45 @@ def _ffn_seq(sp: Params, h: torch.Tensor, cfg: ModelConfig, ffn: str,
 def stack_forward(stack: List[Params], x: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig, window: int = 0,
                   capture_activations: bool = False) -> StackOutput:
+    """The stack over a whole sequence, one group at a time; a group is
+    rematerialised in the backward pass when `cfg.remat` (the reference
+    checkpoints its scanned group function)."""
     P = stack_period(cfg)
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+
+    def group_fn(h, group):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        caps: List[torch.Tensor] = []
+        caps_h: List[torch.Tensor] = []
+        for j in range(P):
+            sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
+            normed = apply_norm(sp["norm1"], h, cfg)
+            if kind == "attn":
+                mix, _, _ = attention_forward(sp["mixer"], normed, positions,
+                                              cfg, window=window)
+            else:
+                mix = _SSM[kind].forward(sp["mixer"], normed, cfg)
+            h = h + mix
+            if ffn != "none":
+                y, pre, normed2, a = _ffn_seq(sp, h, cfg, ffn,
+                                              capture=capture_activations)
+                if a is not None:
+                    aux = aux + a
+                elif capture_activations:
+                    caps.append(pre)
+                    caps_h.append(normed2)
+                h = h + y
+        return h, aux, caps, caps_h
+
     captures: List[torch.Tensor] = []
     captures_h: List[torch.Tensor] = []
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
-    for group, j in ((g, j) for g in stack for j in range(P)):
-        sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
-        normed = apply_norm(sp["norm1"], h, cfg)
-        if kind == "attn":
-            mix, _, _ = attention_forward(sp["mixer"], normed, positions, cfg,
-                                          window=window)
-        else:
-            mix = _SSM[kind].forward(sp["mixer"], normed, cfg)
-        h = h + mix
-        if ffn != "none":
-            y, pre, normed2, aux = _ffn_seq(sp, h, cfg, ffn,
-                                            capture=capture_activations)
-            if aux is not None:
-                aux_loss = aux_loss + aux
-            elif capture_activations:
-                captures.append(pre)
-                captures_h.append(normed2)
-            h = h + y
+    for group in stack:
+        h, aux, caps, caps_h = maybe_checkpoint(cfg, group_fn, h, group)
+        aux_loss = aux_loss + aux
+        captures += caps
+        captures_h += caps_h
     pre_act = ffn_inputs = None
     if capture_activations and captures:
         pre_act = torch.stack(captures)
@@ -176,7 +185,6 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     row (whatever `max_len` and `kv_quant` say, as in the reference); for
     an SSM sublayer its zero recurrent state (Mamba's conv inputs in
     `dtype`, default the compute dtype; every other leaf float32)."""
-    check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
     kinds = cfg.layer_kinds()
@@ -215,7 +223,6 @@ def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             f"{cfg.arch_id!r} has layer kinds {sorted(set(kinds))} (SSM "
             f"sublayers carry per-slot recurrent state, which pages cannot "
             f"represent)")
-    check_supported(cfg)
     P = stack_period(cfg)
     G = cfg.n_layers // P
 

@@ -14,7 +14,9 @@ lifecycle (QUEUED -> PREFILL -> DECODE -> FINISHED), on PyTorch.
   * streaming via `submit(..., on_token=...)` callbacks or `stream(handle)`.
 
 Resident mode serves every decoder-only family the port has (dense, MoE,
-SSM, hybrid); offload mode dense models only. A MoE layer's capacity is
+SSM, hybrid); offload mode dense models only. Encoder-decoder and VLM
+models are refused when the server is built (their entry points are
+`Model.prefill` / `decode_step`). A MoE layer's capacity is
 computed from all `max_slots` rows, free ones included, so free slots
 compete for expert slots: they are fed what the reference feeds them (the
 last token and position each held), which keeps tokens equal to the
@@ -241,6 +243,14 @@ class InferenceServer:
                  device: DeviceLike = None):
         if mode not in ("resident", "offload"):
             raise ValueError(f"unknown serving mode {mode!r}")
+        if model.cfg.is_encdec:
+            raise ValueError("InferenceServer covers decoder-only stacks")
+        if model.cfg.family == "vlm":
+            # the reference's server fails at the first prefill instead
+            # (its requests carry no patch features)
+            raise ValueError("InferenceServer serves token prompts; a VLM's "
+                             "prefill needs patch_feats, which requests do "
+                             "not carry")
         if (page_size is None) != (num_pages is None):
             raise ValueError("pass both page_size and num_pages, or neither")
         if page_size is not None and swa:

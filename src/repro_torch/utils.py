@@ -72,6 +72,19 @@ def tree_leaves(tree: Any) -> list:
     return [] if tree is None else [tree]
 
 
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """`fn` over the leaves of `tree` and the matching leaves of `rest`
+    (trees of the same nested dicts / lists), in a tree of the same
+    shape."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 def _itemsize(leaf: Any) -> int:
     if isinstance(leaf, torch.Tensor):
         return leaf.element_size()

@@ -1263,3 +1263,111 @@ def test_family_server_on_card(dev, arch, kernel, kw):
         if t is not None:
             assert _top2_margin(cpu_model, params_cpu, prompt, want, t,
                                 swa=kw.get("swa", False)) < 1e-3
+
+
+# -- encoder-decoder, VLM and training ---------------------------------------------
+
+def _greedy(model, params, batch, n_new, swa):
+    """Greedy tokens [B, n_new] and each step's top-2 margins [n_new, B]
+    through `prefill` / `decode_step` at the shared scalar position."""
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        cache = model.init_cache(B, prefix + S + n_new, swa=swa)
+        logits, cache = model.prefill(params, batch, cache)
+        rows = [logits[:, -1]]
+        for i in range(n_new - 1):
+            logits, cache = model.decode_step(
+                params, rows[-1].argmax(-1)[:, None], prefix + S + i, cache)
+            rows.append(logits[:, 0])
+        lg = torch.stack(rows).float().cpu()
+    top2 = torch.topk(lg, 2, dim=-1).values
+    return lg.argmax(-1).T.numpy(), (top2[..., 0] - top2[..., 1]).numpy()
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
+def test_encdec_vlm_on_card(dev, arch):
+    """Reduced seamless-m4t and internvl2 with 8-slot rings (the 12-token
+    prompts wrap them): the card's swa decode runs the kernel once an
+    attention layer a step (no plain call); its greedy tokens are the CPU's
+    swa run's, and the contiguous cache's the CPU's contiguous run's, on
+    the same weights, a first difference accepted only where the CPU's
+    top-2 margin is below 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch, reduced=True, d_model=64, vocab_size=128,
+                     sliding_window=8)
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((3, cfg.n_prefix_tokens, cfg.d_frontend),
+                                dtype=np.float32)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 128, (3, 12))),
+             ("frames" if cfg.is_encdec else "patch_feats"):
+                 torch.from_numpy(feats)}
+    params_cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=dev)
+    params = _to(params_cpu, dev)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    for swa in (False, True):
+        want, margins = _greedy(build_model(cfg, device="cpu"), params_cpu,
+                                batch, 8, swa=swa)
+        ops.reset_counts()
+        got, _ = _greedy(model, params, on_card, 8, swa=swa)
+        c = ops.counts["swa_decode"]
+        assert (c.launches, c.plain_calls) == ((7 * cfg.n_layers, 0) if swa
+                                               else (0, 0))
+        for b in range(3):
+            t = next((i for i, (x, y) in enumerate(zip(got[b], want[b]))
+                      if x != y), None)
+            assert t is None or margins[t, b] < 1e-3, (swa, b, t)
+
+
+def test_train_step_on_card(dev, tmp_path):
+    """One train step of reduced granite-3-2b with 2 microbatches on the
+    card equals the CPU's from the same params (loss 1e-4 relative, every
+    gradient leaf 1e-4 of its largest magnitude, grad norm 1e-3), and a
+    checkpoint of the card's state loads back bit for bit on the card and
+    on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, TrainState, init_adamw,
+                                      load_checkpoint, make_train_step,
+                                      save_checkpoint)
+    from repro_torch.training.train import grads_of
+    from repro_torch.utils import tree_leaves
+    cfg = get_config("granite-3-2b", reduced=True, d_model=64, n_layers=2,
+                     vocab_size=128)
+    params_cpu = build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 128, (4, 32)))
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    runs = {}
+    for device in ("cpu", dev):
+        model = build_model(cfg, device=device)
+        params = _to(params_cpu, device)
+        batch = {"tokens": tokens.to(device)}
+        loss, _, grads = grads_of(model, params, batch)
+        state, metrics = make_train_step(model, opt, microbatches=2)(
+            TrainState(params, init_adamw(params, opt)), batch)
+        runs[str(device)] = (float(loss), params_to_numpy(grads), state,
+                             {k: float(v) for k, v in metrics.items()})
+    (cl, cg, _, cm), (gl, gg, state, gm) = runs["cpu"], runs[str(dev)]
+    assert gl == pytest.approx(cl, rel=1e-4)
+    assert gm["loss"] == pytest.approx(cm["loss"], rel=1e-4)
+    assert gm["grad_norm"] == pytest.approx(cm["grad_norm"], rel=1e-3)
+    for a, b in zip(tree_leaves(cg), tree_leaves(gg)):
+        np.testing.assert_allclose(b, a, rtol=0,
+                                   atol=1e-4 * max(np.abs(a).max(), 1e-30))
+    path = str(tmp_path / "card.npz")
+    save_checkpoint(path, state, {"step": 1})
+    for device in (dev, "cpu"):
+        like = TrainState(_to(state.params, device),
+                          init_adamw(_to(state.params, device), opt))
+        restored, meta = load_checkpoint(path, like)
+        assert meta == {"step": 1}
+        for a, b in zip(tree_leaves(state), tree_leaves(restored)):
+            assert b.device.type == torch.device(device).type
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())

@@ -139,6 +139,32 @@ def test_offline_entry_points_default_to_cuda_and_raise_without_it(
         serve.main(geom + ["--requests", "1"])
 
 
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    """The encoder-decoder and VLM models, the data iterator and
+    `launch.train` run on CUDA unless given the CPU, and raise without a
+    card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_data_iter
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    for arch in ("seamless-m4t-medium", "internvl2-26b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(get_config(arch, reduced=True))
+    data = DataConfig(vocab_size=16, seq_len=4, batch_size=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_data_iter(data)
+    assert next(make_data_iter(data, device="cpu"))["tokens"].device.type \
+        == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "granite-3-2b", "--steps", "1"])
+    ck = str(tmp_path / "ck.npz")
+    hist = train.main(["--arch", "granite-3-2b", "--steps", "1", "--batch",
+                       "1", "--seq", "8", "--device", "cpu",
+                       "--checkpoint", ck])
+    assert len(hist) == 1
+
+
 def test_kernel_wrapper_never_falls_back():
     """The dispatcher routes only CPU tensors to the plain version; the CUDA
     wrapper rejects a CPU tensor instead of computing it."""
@@ -176,7 +202,8 @@ def test_kernel_wrapper_never_falls_back():
 def test_unported_options_raise():
     """Options of ported slices construct and run (prefetch, trained
     predictors with oracle=False, lookahead training); pack_path keeps its
-    rules; model families that are not ported still raise."""
+    rules; what is still refused raises: serving an encoder-decoder or a
+    VLM, offload serving of either, and `launch.train --model-axis 2`."""
     import dataclasses
     import threading
     from repro_torch.core.predictor import PredictorParams
@@ -208,16 +235,26 @@ def test_unported_options_raise():
     # pack_path is ported: it needs offload mode (and no offload= runtime)
     with pytest.raises(ValueError, match="requires mode='offload'"):
         InferenceServer(model, params, device="cpu", pack_path="x.pack")
-    # encoder-decoder and VLM models are not ported: the model, the weight
-    # loader and the server refuse them
+    # encoder-decoder and VLM models build and load, but the server refuses
+    # them (the enc-dec with the reference's message, the VLM when built,
+    # where the reference fails at its first prefill), offload serving
+    # refuses both, and training across devices is not ported
     from repro_torch.configs import get_config
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import serve, train
     for arch in ("seamless-m4t-medium", "internvl2-26b"):
         cfg = get_config(arch, reduced=True)
-        with pytest.raises(ValueError, match="encoder-decoder and VLM"):
-            build_model(cfg, device="cpu")
-        with pytest.raises(ValueError, match="encoder-decoder and VLM"):
-            params_from_numpy({"stack": {}}, cfg, device="cpu")
+        fam = build_model(cfg, device="cpu")
+        fam_params = fam.init_params()
+        match = ("InferenceServer covers decoder-only stacks"
+                 if cfg.is_encdec else "VLM's prefill needs patch_feats")
+        with pytest.raises(ValueError, match=match):
+            InferenceServer(fam, fam_params, device="cpu")
+        with pytest.raises(SystemExit, match="dense decoder-only archs"):
+            serve.main(["--arch", arch, "--mode", "offload", "--requests",
+                        "1", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="distributed slice"):
+        train.main(["--arch", "granite-3-2b", "--model-axis", "2",
+                    "--device", "cpu"])
 
 
 def test_generator_init_is_seeded():
