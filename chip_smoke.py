@@ -221,7 +221,19 @@ Phases, in order (any failure raises and the script exits non-zero):
      `launch.train.main` on reduced granite-3-2b: 6 steps with a
      checkpoint every 3, then `--steps 8 --resume`, which starts at step 6
      from the saved state bit for bit with the schedule's lr at step 7.
-     The three phases' seconds are printed.
+ 19. sharded: a one-rank NCCL process group (FileStore under the run's
+     temporary directory) and a (1, 1) mesh over ("data", "model"):
+     opt-350m as in 18 trained on DTensor leaves placed by
+     `distributed.sharding` against the unsharded step from the same
+     params and batch at 2 x 64 (loss 1e-6 relative, each gathered
+     gradient leaf 1e-5 in relative L2, the updated params equal to AdamW
+     on the gathered gradients to 1e-6, the state keeping its
+     placements); the sharded and unsharded ms a step (median of steps 3
+     to 10 at 8 x 128: DTensor's host cost); `pipelined_mlstm_forward` at
+     xlstm-125m's widths (B = 2, T = 2048, one stage) against
+     `ssm.mlstm_forward` on the card (1e-5). Collectives across cards are
+     `test_sharded_train_step_on_cards` in tests/test_torch_cuda.py.
+     The seconds of phases 16 to 19 are printed.
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -3315,6 +3327,150 @@ def train_phase(dev, seed: int, reduced: bool, tmp: str) -> dict:
     return row
 
 
+# -- sharded phase ----------------------------------------------------------------
+
+SHARD_LOSS_TOL = 1e-6        # relative, sharded vs unsharded step
+SHARD_GRAD_L2_TOL = 1e-5     # each gathered gradient leaf, relative L2
+MLSTM_B, MLSTM_T = 2, 2048   # the pipelined mLSTM at xlstm-125m's widths
+MLSTM_TOL = 1e-5
+
+
+def sharded_phase(dev, seed: int, reduced: bool, tmp: str) -> dict:
+    """One rank of a process group (NCCL on the card, gloo in the CPU
+    rehearsal) opened through a FileStore under `tmp`, a (1, 1) mesh over
+    ("data", "model"): opt-350m (float32, remat) trained on DTensor leaves
+    placed by `distributed.sharding` against the unsharded step from the
+    same params and batch (2 x 64: loss SHARD_LOSS_TOL relative, each
+    gathered gradient leaf SHARD_GRAD_L2_TOL in relative L2, the updated
+    params equal to AdamW on the gathered gradients to TRAIN_PARAM_TOL),
+    ms a step of both at TRAIN_BATCH x TRAIN_SEQ (median of steps 3 to
+    10), then `pipelined_mlstm_forward` at xlstm-125m's widths (B = 2, T =
+    2048, one stage) against `ssm.mlstm_forward` (MLSTM_TOL)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_data_iter
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.seq_pipeline import pipelined_mlstm_forward
+    from repro_torch.launch.train import state_specs
+    from repro_torch.models import build_model, ssm
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                init_adamw)
+    from repro_torch.training.train import (TrainState, grads_of,
+                                            make_train_step)
+    from repro_torch.utils import tree_leaves
+
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=store, rank=0, world_size=1,
+                            **({"device_id": dev} if dev.type == "cuda"
+                               else {}))
+    try:
+        mesh = sh.make_mesh((1, 1), ("data", "model"), dev.type)
+        cfg = get_config("opt-350m", reduced=reduced)
+        model = build_model(cfg, device=dev)
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+        opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+        state = TrainState(params, init_adamw(params, opt_cfg))
+        specs = state_specs(params, mesh)
+
+        def place(batch):
+            return {k: distribute_tensor(v, mesh, sh.placements(
+                sh.batch_spec(mesh, v.shape[0], v.ndim), mesh))
+                for k, v in batch.items()}
+
+        batch = next(make_data_iter(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=CHECK_SEQ,
+            batch_size=CHECK_BATCH, seed=seed + 18), device=dev))
+        dstate = sh.distribute_tree(state, specs, mesh)
+        _, _, g_sh = grads_of(model, dstate.params, place(batch))
+        g_sh = sh.full_tree(g_sh)
+        _, _, g_un = grads_of(model, params, batch)
+        grad_l2 = {}
+        for path, a, b in zip(leaf_paths(g_un), tree_leaves(g_sh),
+                              tree_leaves(g_un)):
+            grad_l2[path] = float((a.float() - b.float()).norm()
+                                  / max(float(b.float().norm()), 1e-30))
+        worst = max(grad_l2, key=grad_l2.get)
+        step = make_train_step(model, opt_cfg)
+        new_sh, m_sh = step(dstate, place(batch))
+        new_un, m_un = step(state, batch)
+        placed = all(a.placements == b.placements for a, b in zip(
+            tree_leaves(new_sh), tree_leaves(dstate)))
+        redo, _, _ = adamw_update(g_sh, init_adamw(params, opt_cfg), params,
+                                  opt_cfg)
+        redo_err = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(sh.full_tree(new_sh.params)), tree_leaves(redo)))
+        del new_sh, new_un, redo, g_sh, g_un
+        row = {"arch": cfg.arch_id, "reduced": reduced, "mesh":
+               sh.mesh_shape(mesh), "backend": dist.get_backend(),
+               "remat": cfg.remat, "check_batch": CHECK_BATCH,
+               "check_seq": CHECK_SEQ, "loss_sharded": float(m_sh["loss"]),
+               "loss_unsharded": float(m_un["loss"]),
+               "grad_norm_sharded": float(m_sh["grad_norm"]),
+               "grad_norm_unsharded": float(m_un["grad_norm"]),
+               "grad_max_leaf_l2_rel": grad_l2[worst],
+               "grad_worst_leaf": worst,
+               "params_vs_adamw_on_gathered": redo_err,
+               "state_keeps_placements": placed}
+        assert abs(row["loss_sharded"] - row["loss_unsharded"]) <= \
+            SHARD_LOSS_TOL * abs(row["loss_unsharded"]), row
+        assert grad_l2[worst] <= SHARD_GRAD_L2_TOL, row
+        assert redo_err <= TRAIN_PARAM_TOL and placed, row
+
+        # ms a step, unsharded then sharded, from the same state and batches
+        data = make_data_iter(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            batch_size=TRAIN_BATCH, seed=seed), device=dev)
+        batches = [next(data) for _ in range(TRAIN_STEPS)]
+        for name, st, prep in (("unsharded", state, lambda b: b),
+                               ("sharded", dstate, place)):
+            times = []
+            for b in batches:
+                b = prep(b)
+                sync(dev)
+                t0 = time.perf_counter()
+                st, metrics = step(st, b)
+                float(metrics["loss"])          # synchronises
+                times.append(time.perf_counter() - t0)
+            row[f"{name}_ms_per_step"] = 1e3 * statistics.median(times[2:])
+            row[f"{name}_step_ms"] = [1e3 * t for t in times]
+            del st
+        del state, dstate, params, model
+
+        # the sequence pipeline over the model axis (one stage here)
+        xcfg = get_config("xlstm-125m", reduced=reduced)
+        gen = torch.Generator(device=dev).manual_seed(seed + 19)
+        p = ssm.init_mlstm(gen, xcfg)
+        T = 64 if reduced else MLSTM_T
+        x = torch.randn((MLSTM_B, T, xcfg.d_model), generator=gen,
+                        device=dev) * 0.5
+        with torch.no_grad():
+            sync(dev)
+            t0 = time.perf_counter()
+            y = pipelined_mlstm_forward(p, x, xcfg, mesh).full_tensor()
+            sync(dev)
+            pipe_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = ssm.mlstm_forward(p, x, xcfg)
+            sync(dev)
+            seq_s = time.perf_counter() - t0
+        err = float((y - ref).abs().max())
+        row["mlstm"] = {"arch": xcfg.arch_id, "d_model": xcfg.d_model,
+                        "heads": xcfg.n_heads, "batch": MLSTM_B, "seq": T,
+                        "stages": sh.mesh_shape(mesh)["model"],
+                        "max_abs_err": err, "tol": MLSTM_TOL,
+                        "pipelined_s": pipe_s, "sequential_s": seq_s}
+        assert err <= MLSTM_TOL and bool(torch.isfinite(y).all()), row
+    finally:
+        dist.destroy_process_group()
+    emit({"sharded": row})
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3414,6 +3570,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
         train_phase(dev, args.seed, args.cpu_rehearsal, tmp)
     seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as tmp:
+        sharded_phase(dev, args.seed, args.cpu_rehearsal, tmp)
+    seconds["sharded"] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)

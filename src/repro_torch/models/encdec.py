@@ -22,6 +22,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.dtensor import batch_placed
 from repro_torch.models.kvcache import (KVCache, SWACache, attend_full_cache,
                                         init_kv_cache, init_swa_cache,
                                         kv_write, swa_write)
@@ -51,7 +52,8 @@ def init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def encoder_forward(p: Params, frames: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """frames: [B, F, d_frontend] stub features -> [B, F, d_model] memory."""
-    x = frames.to(cfg.dtype()) @ p["frontend_proj"].to(cfg.dtype())
+    x = batch_placed(frames.to(cfg.dtype())
+                     @ p["frontend_proj"].to(cfg.dtype()), like=frames)
     B, F = x.shape[0], x.shape[1]
     positions = torch.arange(F, device=x.device)[None].expand(B, F)
 
@@ -63,7 +65,7 @@ def encoder_forward(p: Params, frames: torch.Tensor,
         return h + y
 
     for lp in p["layers"]:
-        x = maybe_checkpoint(cfg, layer_fn, x, lp)
+        x = batch_placed(maybe_checkpoint(cfg, layer_fn, x, lp), like=x)
     return apply_norm(p["final_norm"], x, cfg)
 
 
@@ -102,7 +104,7 @@ def decoder_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
         return _cross_and_ffn(lp, h + a, mk, mv, cfg)
 
     for lp in p["layers"]:
-        x = maybe_checkpoint(cfg, layer_fn, x, lp)
+        x = batch_placed(maybe_checkpoint(cfg, layer_fn, x, lp), like=x)
     return apply_norm(p["final_norm"], x, cfg)
 
 

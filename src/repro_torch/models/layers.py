@@ -17,6 +17,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.dtensor import (replicated, rows_and_heads,
+                                           split_last)
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,16 +113,15 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(p: Params, xq: torch.Tensor, xkv: torch.Tensor,
                  cfg: ModelConfig):
-    B, T = xq.shape[0], xq.shape[1]
-    S = xkv.shape[1]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     q = promoted_matmul(xq, p["wq"])
     k = promoted_matmul(xkv, p["wk"])
     v = promoted_matmul(xkv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, T, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    # under sharding, a head count the model axis does not divide is
+    # replicated before the split
+    return split_last(q, H), split_last(k, KV), split_last(v, KV)
 
 
 def gqa_attend(
@@ -133,6 +134,15 @@ def gqa_attend(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
+    """[B, T, H * hd]. Under sharding each rank attends its own rows and
+    KV heads (`rows_and_heads`)."""
+    def attend(q, k, v, q_pos, k_pos, k_valid):
+        return _gqa_attend(q, k, v, q_pos, k_pos, k_valid, causal, window)
+    return rows_and_heads(attend, q, (q, k, v, q_pos, k_pos, k_valid),
+                          (2, 2, 2, None, None, None), k.shape[2], (2,))
+
+
+def _gqa_attend(q, k, v, q_pos, k_pos, k_valid, causal, window):
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -178,8 +188,7 @@ def cross_attention_forward(p: Params, x: torch.Tensor,
     Like `attention_forward`, the plain [T, S] score matrix at any length
     (the reference takes its chunked flash form past 2048 positions)."""
     B, T = x.shape[0], x.shape[1]
-    H, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    q = split_last(x @ p["wq"], cfg.n_heads)
     S = memory_k.shape[1]
     zeros_q = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     zeros_k = torch.zeros((B, S), dtype=torch.int32, device=x.device)
@@ -191,11 +200,8 @@ def project_memory_kv(p: Params, memory: torch.Tensor, cfg: ModelConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder memory [B, S, d] through a cross-attention block's k / v
     projections: ([B, S, KV, hd], [B, S, KV, hd])."""
-    B, S = memory.shape[0], memory.shape[1]
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (memory @ p["wk"]).reshape(B, S, KV, hd)
-    v = (memory @ p["wv"]).reshape(B, S, KV, hd)
-    return k, v
+    KV = cfg.n_kv_heads
+    return split_last(memory @ p["wk"], KV), split_last(memory @ p["wv"], KV)
 
 
 # -- FFN -----------------------------------------------------------------------
@@ -295,7 +301,11 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def embed_tokens(p: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return p["embedding"][tokens].to(cfg.dtype())
+    # `F.embedding` (the same rows as indexing), on the table gathered
+    # whole under sharding: DTensor's vocab-sharded lookup mis-sizes its
+    # mask for batch-sharded tokens, and an indexed gather's backward
+    # (`index_put`) has no strategy on some torch versions
+    return F.embedding(tokens, replicated(p["embedding"])).to(cfg.dtype())
 
 
 def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

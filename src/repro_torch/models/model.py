@@ -43,6 +43,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.dtensor import batch_placed
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (_normal, apply_activation, apply_norm,
                                        embed_tokens, init_embedding,
@@ -103,7 +104,8 @@ class Model:
                                     "gelu")
             proj = proj @ params["projector"]["w2"].to(dt)
             x = torch.cat([proj, x], dim=1)
-        return x, _positions(B, x.shape[1], tokens.device)
+        return (batch_placed(x, like=tokens),
+                _positions(B, x.shape[1], tokens.device))
 
     def _encdec_hidden(self, params: Params, batch: Dict[str, torch.Tensor],
                        window: int = 0) -> torch.Tensor:
@@ -114,7 +116,8 @@ class Model:
                                         cfg)
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = batch_placed(embed_tokens(params["embed"], tokens, cfg),
+                         like=tokens)
         return encdec.decoder_forward(params["decoder"], x,
                                       _positions(B, S, tokens.device), memory,
                                       cfg, window=window)

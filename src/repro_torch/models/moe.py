@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed.dtensor import pin, whole
 from repro_torch.models.layers import _normal, apply_activation
 
 Params = Dict[str, torch.Tensor]
@@ -70,8 +71,10 @@ def _aux_loss(probs: torch.Tensor, sel: torch.Tensor, m: MoEConfig
               ) -> torch.Tensor:
     """E * sum_e(mean router prob_e * fraction of routed slots_e)."""
     E, K = m.n_experts, m.top_k
-    routed = torch.zeros_like(probs).scatter_add_(
-        1, sel, torch.ones_like(sel, dtype=probs.dtype))         # [T, E]
+    # counts by one-hot comparison, not `scatter_add_`, which has no
+    # DTensor strategy (the same small integers)
+    iota = torch.arange(E, device=sel.device)
+    routed = (sel[:, :, None] == iota).sum(dim=1).to(probs.dtype)  # [T, E]
     frac_routed = routed.mean(dim=0) / K
     return E * torch.sum(probs.mean(dim=0) * frac_routed)
 
@@ -94,9 +97,16 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     T = B * S
     E, K = m.n_experts, m.top_k
     C = _capacity(T, m)
-    xt = x.reshape(T, d)
+    # under sharding the tokens' gradient comes back as the rows had them
+    # (the routing's backward may shard it over the model axis too, which
+    # the view back to [B, S, d] cannot take)
+    xt = pin(x.reshape(T, d))
     probs, gate_w, sel = route(p, xt, cfg)
     aux = _aux_loss(probs, sel, m)
+    # the dispatch's bookkeeping below (ranks, slots, an in-place scatter
+    # into a fresh tensor) has no DTensor strategy: under sharding it runs
+    # on the whole routing decision, the same on every rank
+    sel = whole(sel)
 
     # capacity ranking: position of each (token, k) in its expert's queue,
     # in token-major, k-minor order
@@ -118,7 +128,10 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                             device=x.device)
     slot_token.scatter_(0, torch.where(keep, dest, E * C), token_idx)
     slot_token = slot_token[:E * C]
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)          # sentinel
+    # the sentinel row made whole (a DTensor's `new_zeros` would shard
+    # its one row like the tokens)
+    sentinel = torch.zeros((1, d), dtype=xt.dtype, device=xt.device)
+    xt_pad = torch.cat([xt, sentinel], dim=0)
     ye = _expert_ffn(p, xt_pad[slot_token].reshape(E, C, d), cfg)  # [E, C, d]
 
     # combine: each token's K outputs gathered and summed in k order

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.distributed.dtensor import (elementwise, rows_and_heads,
+                                           split_last)
 from repro_torch.models.layers import _normal, apply_activation
 
 Params = Dict[str, torch.Tensor]
@@ -124,13 +126,21 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, T, d = x.shape
     di, N, dc, _ = _mamba_dims(cfg)
     x_in, z = torch.chunk(x @ p["in_proj"].to(x.dtype), 2, dim=-1)  # [B,T,di]
-    # causal depthwise conv over time, its terms added in k order
-    x_pad = F.pad(x_in, (0, 0, dc - 1, 0))
-    conv_w = p["conv_w"].to(x.dtype)
-    x_conv = 0
-    for k in range(dc):
-        x_conv = x_conv + x_pad[:, k:k + T, :] * conv_w[k]
-    x_conv = _silu(x_conv + p["conv_b"].to(x.dtype))
+
+    def conv(x_in, conv_w, conv_b):
+        # causal depthwise conv over time, its terms added in k order
+        x_pad = F.pad(x_in, (0, 0, dc - 1, 0))
+        conv_w = conv_w.to(x.dtype)
+        x_conv = 0
+        for k in range(dc):
+            x_conv = x_conv + x_pad[:, k:k + T, :] * conv_w[k]
+        return x_conv + conv_b.to(x.dtype), x_pad[:, T:, :].contiguous()
+    # under sharding each rank convolves its own rows and channels (`F.pad`
+    # of a DTensor comes back with the wrong placements on some torch
+    # versions)
+    x_conv, tail = rows_and_heads(conv, x_in, (x_in, p["conv_w"], p["conv_b"]),
+                                  (2, 1, 0), di, (2, 2), (0, None, None))
+    x_conv = _silu(x_conv)
     dt, B_t, C_t = _mamba_ssm_inputs(p, x_conv, cfg)
     A, D = _mamba_consts(p)
     h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
@@ -138,7 +148,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h_final, y = _scan(_mamba_step(A, D), h0, tm, T)              # [B, T, di]
     out = (y * _silu(z)) @ p["out_proj"].to(x.dtype)
     if return_state:
-        return out, MambaState(conv=x_pad[:, T:, :].contiguous(), ssm=h_final)
+        return out, MambaState(conv=tail, ssm=h_final)
     return out
 
 
@@ -186,7 +196,10 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def mlstm_init_state(batch: int, cfg: ModelConfig, device,
                      dtype=torch.float32) -> MLSTMState:
-    H, hd = cfg.n_heads, cfg.head_dim
+    return _mlstm_zero_state(batch, cfg.n_heads, cfg.head_dim, device)
+
+
+def _mlstm_zero_state(batch: int, H: int, hd: int, device) -> MLSTMState:
     f32 = dict(dtype=torch.float32, device=device)
     return MLSTMState(C=torch.zeros((batch, H, hd, hd), **f32),
                       n=torch.zeros((batch, H, hd), **f32),
@@ -195,13 +208,14 @@ def mlstm_init_state(batch: int, cfg: ModelConfig, device,
 
 def _mlstm_gates(p: Params, x: torch.Tensor, cfg: ModelConfig):
     H, hd = cfg.n_heads, cfg.head_dim
-    shp = x.shape[:-1]
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(*shp, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(*shp, H, hd) * hd ** -0.5
-    v = (x @ p["wv"].to(dt)).reshape(*shp, H, hd)
+    q = split_last(x @ p["wq"].to(dt), H)
+    k = split_last(x @ p["wk"].to(dt), H) * hd ** -0.5
+    v = split_last(x @ p["wv"].to(dt), H)
     i_log = (x @ p["w_i"].to(dt) + p["b_i"].to(dt)).float()
-    f_log = F.logsigmoid((x @ p["w_f"].to(dt) + p["b_f"].to(dt)).float())
+    # F.logsigmoid has no DTensor strategy: run it on each shard
+    f_log = elementwise(F.logsigmoid,
+                        (x @ p["w_f"].to(dt) + p["b_f"].to(dt)).float())
     o = torch.sigmoid(x @ p["w_o"].to(dt))
     return q, k, v, i_log, f_log, o
 
@@ -225,21 +239,34 @@ def _mlstm_step(carry: MLSTMState, inp):
 
 def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   return_state: bool = False):
-    B, T, d = x.shape
+    T = x.shape[1]
     q, k, v, i_log, f_log, o = _mlstm_gates(p, x, cfg)
-    carry = mlstm_init_state(B, cfg, x.device)
-    tm = [a.transpose(0, 1) for a in (q, k, v, i_log, f_log)]
-    final, ys = _scan(_mlstm_step, carry, tm, T)
-    out = (ys.reshape(B, T, -1) * o) @ p["out_proj"].to(x.dtype)
+
+    def scan(q, k, v, i_log, f_log):
+        b = q.shape[0]
+        carry = _mlstm_zero_state(b, q.shape[2], q.shape[3], q.device)
+        tm = [a.transpose(0, 1) for a in (q, k, v, i_log, f_log)]
+        final, ys = _scan(_mlstm_step, carry, tm, T)
+        return (ys.reshape(b, T, -1),) + tuple(final)
+    # under sharding each rank scans its own rows and heads
+    ys, *final = rows_and_heads(scan, q, (q, k, v, i_log, f_log),
+                                (2, 2, 2, 2, 2), cfg.n_heads, (2, 1, 1, 1))
+    final = MLSTMState(*final)
+    out = (ys * o) @ p["out_proj"].to(x.dtype)
     return (out, final) if return_state else out
 
 
 def mlstm_decode_step(p: Params, x_t: torch.Tensor, state: MLSTMState,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, MLSTMState]:
-    B, d = x_t.shape
     q, k, v, i_log, f_log, o = _mlstm_gates(p, x_t, cfg)
-    state, y = _mlstm_step(state, (q, k, v, i_log, f_log))
-    return (y.reshape(B, -1) * o) @ p["out_proj"].to(x_t.dtype), state
+
+    def step(q, k, v, i_log, f_log, C, n, m):
+        st, y = _mlstm_step(MLSTMState(C, n, m), (q, k, v, i_log, f_log))
+        return (y.reshape(y.shape[0], -1),) + tuple(st)
+    # under sharding each rank steps its own rows and heads
+    y, *state = rows_and_heads(step, q, (q, k, v, i_log, f_log, *state),
+                               (1,) * 8, cfg.n_heads, (1,) * 4)
+    return (y * o) @ p["out_proj"].to(x_t.dtype), MLSTMState(*state)
 
 
 # ===========================================================================
@@ -271,7 +298,11 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def slstm_init_state(batch: int, cfg: ModelConfig, device,
                      dtype=torch.float32) -> SLSTMState:
-    shape = (batch, cfg.n_heads, cfg.head_dim)
+    return _slstm_zero_state(batch, cfg.n_heads, cfg.head_dim, device)
+
+
+def _slstm_zero_state(batch: int, H: int, hd: int, device) -> SLSTMState:
+    shape = (batch, H, hd)
     f32 = dict(dtype=torch.float32, device=device)
     return SLSTMState(c=torch.zeros(shape, **f32),
                       n=torch.full(shape, 1e-6, **f32),
@@ -303,27 +334,46 @@ def _slstm_step_fn(p: Params):
 
 
 def _slstm_wx(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    H, hd = cfg.n_heads, cfg.head_dim
-    shp, dt = x.shape[:-1], x.dtype
-    return tuple((x @ p[f"w_{g}"].to(dt) + p[f"b_{g}"].to(dt)
-                  ).reshape(*shp, H, hd) for g in _SLSTM_GATES)
+    H, dt = cfg.n_heads, x.dtype
+    return tuple(split_last(x @ p[f"w_{g}"].to(dt) + p[f"b_{g}"].to(dt), H)
+                 for g in _SLSTM_GATES)
 
 
 def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   return_state: bool = False):
-    B, T, d = x.shape
+    T = x.shape[1]
     wx = _slstm_wx(p, x, cfg)
-    carry = slstm_init_state(B, cfg, x.device)
-    final, ys = _scan(_slstm_step_fn(p), carry,
-                      [a.transpose(0, 1) for a in wx], T)
-    y = ys.reshape(B, T, -1)
+    rs = [p[f"r_{g}"] for g in _SLSTM_GATES]
+
+    def scan(*args):
+        wx, rs = args[:4], args[4:]
+        b, H, hd = wx[0].shape[0], wx[0].shape[2], wx[0].shape[3]
+        carry = _slstm_zero_state(b, H, hd, wx[0].device)
+        step = _slstm_step_fn(dict(zip((f"r_{g}" for g in _SLSTM_GATES),
+                                       rs)))
+        final, ys = _scan(step, carry, [a.transpose(0, 1) for a in wx], T)
+        return (ys.reshape(b, T, -1),) + tuple(final)
+    # under sharding each rank scans its own rows and heads
+    y, *final = rows_and_heads(scan, wx[0], (*wx, *rs), (2,) * 4 + (0,) * 4,
+                               cfg.n_heads, (2, 1, 1, 1, 1),
+                               (0,) * 4 + (None,) * 4)
+    final = SLSTMState(*final)
     out = (y @ p["out_proj"].to(y.dtype)).to(x.dtype)
     return (out, final) if return_state else out
 
 
 def slstm_decode_step(p: Params, x_t: torch.Tensor, state: SLSTMState,
                       cfg: ModelConfig) -> Tuple[torch.Tensor, SLSTMState]:
-    B, d = x_t.shape
-    state, y = _slstm_step_fn(p)(state, _slstm_wx(p, x_t, cfg))
-    y = y.reshape(B, -1)
-    return (y @ p["out_proj"].to(y.dtype)).to(x_t.dtype), state
+    wx = _slstm_wx(p, x_t, cfg)
+    rs = [p[f"r_{g}"] for g in _SLSTM_GATES]
+
+    def step(*args):
+        wx, rs, st = args[:4], args[4:8], SLSTMState(*args[8:])
+        st, y = _slstm_step_fn(dict(zip((f"r_{g}" for g in _SLSTM_GATES),
+                                        rs)))(st, wx)
+        return (y.reshape(y.shape[0], -1),) + tuple(st)
+    # under sharding each rank steps its own rows and heads
+    y, *state = rows_and_heads(step, wx[0], (*wx, *rs, *state),
+                               (1,) * 4 + (0,) * 4 + (1,) * 4, cfg.n_heads,
+                               (1,) * 5, (0,) * 4 + (None,) * 4 + (0,) * 4)
+    return (y @ p["out_proj"].to(y.dtype)).to(x_t.dtype), SLSTMState(*state)

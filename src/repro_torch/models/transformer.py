@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.dtensor import batch_placed
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.kvcache import (KVCache, PagedKVCache,
@@ -163,7 +164,9 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     h = x
     for group in stack:
+        h_in = h
         h, aux, caps, caps_h = maybe_checkpoint(cfg, group_fn, h, group)
+        h = batch_placed(h, like=h_in)
         aux_loss = aux_loss + aux
         captures += caps
         captures_h += caps_h

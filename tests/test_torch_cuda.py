@@ -1371,3 +1371,156 @@ def test_train_step_on_card(dev, tmp_path):
         for a, b in zip(tree_leaves(state), tree_leaves(restored)):
             assert b.device.type == torch.device(device).type
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+# -- sharded training across cards -------------------------------------------------
+
+_CARDS_WORLD = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TMP = sys.argv[1]
+
+
+def rank_main(rank, world):
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="file://" + TMP + "/store",
+                            rank=rank, world_size=world, device_id=dev)
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.train import state_specs
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_adamw
+    from repro_torch.training.train import TrainState, grads_of, make_train_step
+    from repro_torch.utils import tree_leaves
+    mesh = sh.make_mesh((world // 2, 2), ("data", "model"), "cuda")
+    cfg = get_config("granite-3-2b", reduced=True, d_model=256, n_heads=4,
+                     n_kv_heads=2, vocab_size=512, d_ff=512)
+    model = build_model(cfg, device=dev)
+    from repro_torch.launch import seeded_model
+    _, params = seeded_model(cfg, 0, dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (8, 32)).astype(np.int32)).to(dev)
+    opt_cfg = AdamWConfig()
+    state = TrainState(params, init_adamw(params, opt_cfg))
+    dstate = sh.distribute_tree(state, state_specs(params, mesh), mesh)
+    dbatch = {"tokens": distribute_tensor(tokens, mesh, sh.placements(
+        sh.batch_spec(mesh, 8, 2), mesh))}
+    _, _, g_sh = grads_of(model, dstate.params, dbatch)
+    g_sh = sh.full_tree(g_sh)
+    _, _, g_un = grads_of(model, params, {"tokens": tokens})
+    grad_l2 = max(float((a - b).norm() / b.norm())
+                  for a, b in zip(tree_leaves(g_sh), tree_leaves(g_un)))
+    step = make_train_step(model, opt_cfg)
+    new_sh, m_sh = step(dstate, dbatch)
+    _, m_un = step(state, {"tokens": tokens})
+    redo, _, _ = adamw_update(g_sh, init_adamw(params, opt_cfg), params,
+                              opt_cfg)
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(sh.full_tree(new_sh.params)), tree_leaves(redo)))
+    if rank == 0:
+        with open(TMP + "/cards.json", "w") as f:
+            json.dump({"world": world, "loss_sharded": float(m_sh["loss"]),
+                       "loss_unsharded": float(m_un["loss"]),
+                       "grad_max_leaf_l2_rel": grad_l2,
+                       "params_vs_adamw_on_gathered": err}, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    n = int(sys.argv[2])
+    mp.spawn(rank_main, args=(n,), nprocs=n)
+    print("CARDS_DONE")
+"""
+
+
+def test_sharded_train_step_on_cards(dev, tmp_path):
+    """min(4, cards) NCCL ranks on a (world / 2, 2) mesh train reduced
+    granite-3-2b (d_model 256, 4 / 2 heads, vocab 512, d_ff 512) one step
+    on an 8 x 32 batch: the sharded loss equals the unsharded card step's
+    within 1e-5 relative, each gathered gradient leaf is within 1e-4 in
+    relative L2, and the params equal AdamW on the gathered gradients to
+    1e-6 (the CPU test's rules, tests/test_torch_distributed.py). Skips
+    below 2 cards."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA cards")
+    script = tmp_path / "cards.py"
+    script.write_text(_CARDS_WORLD)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, str(script), str(tmp_path), str(n)],
+                         capture_output=True, text=True, timeout=600, env=env)
+    assert "CARDS_DONE" in res.stdout, res.stdout[-4000:] + res.stderr[-8000:]
+    m = json.loads((tmp_path / "cards.json").read_text())
+    print(m)
+    assert abs(m["loss_sharded"] - m["loss_unsharded"]) <= \
+        1e-5 * abs(m["loss_unsharded"]), m
+    assert m["grad_max_leaf_l2_rel"] <= 1e-4, m
+    assert m["params_vs_adamw_on_gathered"] <= 1e-6, m
+
+
+SHARDED_ARCHS = ["granite-3-2b", "granite-moe-1b-a400m", "xlstm-125m",
+                 "jamba-1.5-large-398b", "seamless-m4t-medium",
+                 "internvl2-26b", "qwen2-7b", "internlm2-20b"]
+
+
+@pytest.mark.parametrize("arch", SHARDED_ARCHS)
+def test_sharded_train_step_one_rank_on_card(dev, tmp_path, arch):
+    """A one-rank NCCL group and a (1, 1) mesh: the sharded step of each
+    family (reduced) on DTensor leaves equals the unsharded card step
+    (loss 1e-5 relative, params 1e-5 of their scale) and keeps the state's
+    placements. Every leaf goes through DTensor's sharding propagation, as
+    on a larger mesh, on the card's torch."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import seeded_model
+    from repro_torch.launch.train import state_specs
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.train import TrainState, make_train_step
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(arch, reduced=True, vocab_size=128)
+    model, params = seeded_model(cfg, 0, dev)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, 128, (4, 16)).astype(np.int32)).to(dev)}
+    feats = (4, cfg.n_prefix_tokens, cfg.d_frontend)
+    if cfg.family == "vlm":
+        batch["patch_feats"] = torch.from_numpy(
+            rng.standard_normal(feats).astype(np.float32)).to(dev)
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal(feats).astype(np.float32)).to(dev)
+    opt = AdamWConfig()
+    state = TrainState(params, init_adamw(params, opt))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = sh.make_mesh((1, 1), ("data", "model"), "cuda")
+        dstate = sh.distribute_tree(state, state_specs(params, mesh), mesh)
+        dbatch = {k: distribute_tensor(v, mesh, sh.placements(
+            sh.batch_spec(mesh, 4, v.ndim), mesh)) for k, v in batch.items()}
+        step = make_train_step(model, opt)
+        new_sh, m_sh = step(dstate, dbatch)
+        new_un, m_un = step(state, batch)
+        assert all(a.placements == b.placements for a, b in zip(
+            tree_leaves(new_sh), tree_leaves(dstate)))
+        full = sh.full_tree(new_sh.params)
+    finally:
+        dist.destroy_process_group()
+    assert float(m_sh["loss"]) == pytest.approx(float(m_un["loss"]),
+                                                rel=1e-5)
+    for a, b in zip(tree_leaves(full), tree_leaves(new_un.params)):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) <= 1e-5 * scale

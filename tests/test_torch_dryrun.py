@@ -1,0 +1,200 @@
+"""The dry run of the port and its shape-only stand-ins, against the
+reference's (tests/test_dryrun.py, tests/test_input_specs.py).
+
+  * `launch.specs`: batch, decode-token and cache stand-ins have the
+    reference's shapes and dtypes (`jax.ShapeDtypeStruct`s), on the meta
+    device, and the same SWA routing;
+  * the collective accounting adds output bytes by kind, as the
+    reference's HLO parser does, for recorded outputs and for a DTensor
+    redistribution on a fake world;
+  * `run_case("xlstm-125m", "decode_32k")` on a fake 8-rank (2, 4) world:
+    FLOPs and collective bytes above 0, and per-device argument bytes equal
+    to the sum over leaves of bytes / shard count under the reference's own
+    specs for that mesh, plus the declared stack-axis divergence: on
+    (2, 4) xlstm-125m's G = 2 divides the data axis, so the reference
+    shards its 12 stacked norm leaves [2, 768] over (data, model) and the
+    port's per-layer [768] leaves over model only (384 bytes a leaf more
+    a device, named below).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import ASSIGNED_CONFIGS, INPUT_SHAPES
+from repro.configs import get_config as jget_config
+from repro.distributed import sharding as jsh
+from repro.launch import specs as jspecs
+from repro.models import build_model as jbuild_model
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import dryrun
+from repro_torch.launch import specs as specs_lib
+
+_DT = {jnp.dtype(jnp.int32): torch.int32, jnp.dtype(jnp.bfloat16): torch.bfloat16,
+       jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.int8): torch.int8}
+
+
+def _same(sds, t):
+    assert isinstance(t, torch.Tensor) and t.device.type == "meta"
+    assert tuple(t.shape) == tuple(sds.shape)
+    assert t.dtype == _DT[jnp.dtype(sds.dtype)]
+
+
+@pytest.mark.parametrize("arch", sorted(ASSIGNED_CONFIGS))
+def test_batch_and_token_specs_match_reference(arch):
+    jcfg = jget_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = get_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    for name, shape in INPUT_SHAPES.items():
+        ref = jspecs.batch_specs(jcfg, shape)
+        port = specs_lib.batch_specs(cfg, shape)
+        assert set(ref) == set(port)
+        for k in ref:
+            _same(ref[k], port[k])
+        ref_t, port_t = (jspecs.decode_token_specs(shape),
+                         specs_lib.decode_token_specs(shape))
+        assert set(ref_t) == set(port_t)
+        for k in ref_t:
+            _same(ref_t[k], port_t[k])
+        assert specs_lib.uses_swa_for(cfg, shape) == \
+            jspecs.uses_swa_for(jcfg, shape)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "jamba-1.5-large-398b",
+                                  "xlstm-125m", "seamless-m4t-medium"])
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+def test_cache_struct_matches_reference(arch, shape_name):
+    """The port's per-layer cache leaves stack to the reference's leaves,
+    shapes and dtypes, by path."""
+    jcfg = jget_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = get_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    shape = INPUT_SHAPES[shape_name]
+    ref = {jsh._leaf_path_str(p): l for p, l in
+           jax.tree_util.tree_flatten_with_path(
+               jspecs.cache_struct(jcfg, shape, jbuild_model(jcfg)))[0]}
+    port = {}
+    sh.map_stacked(lambda p, st, l: port.setdefault(p, (st, l)),
+                   specs_lib.cache_struct(cfg, shape))
+    assert set(ref) == set(port)
+    for path, sds in ref.items():
+        stack, leaf = port[path]
+        assert tuple(stack) + tuple(leaf.shape) == tuple(sds.shape), path
+        assert leaf.dtype == _DT[jnp.dtype(sds.dtype)], path
+        assert leaf.device.type == "meta"
+
+
+def test_collective_accounting_adds_output_bytes_by_kind():
+    """The reference's parser example (tests/test_dryrun.py), as recorded
+    outputs of the functional collectives: an async pair's wait is not
+    counted."""
+    cost = dryrun.DeviceCost()
+    cost.record("all_reduce", torch.empty((128, 256), dtype=torch.float32))
+    cost.record("all_gather_into_tensor", torch.empty(64, dtype=torch.bfloat16))
+    cost.record("reduce_scatter_tensor_coalesced",
+                [torch.empty(32), torch.empty(32)])
+    cost.record("all_to_all_single", torch.empty((16, 16)))
+    cost.record("send", torch.empty(8, dtype=torch.bfloat16))
+    cost.record("wait_tensor", torch.empty(8, dtype=torch.bfloat16))
+    out = cost.summary()
+    assert out["all-reduce"] == 128 * 256 * 4
+    assert out["all-gather"] == 128
+    assert out["reduce-scatter"] == 256
+    assert out["all-to-all"] == 1024
+    assert out["collective-permute"] == 16
+    assert out["total"] == sum(v for k, v in out.items() if k != "total")
+
+
+def test_collective_accounting_sees_dtensor_moves():
+    """On a fake (2, 4) world: gathering a [16, 8] float32 DTensor sharded
+    over model records one all-gather of its whole bytes (each rank's
+    output), and a partial sum's reduction one all-reduce."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    mesh_like = sh.abstract_mesh((2, 4), ("data", "model"))
+    with dryrun.fake_world(mesh_like) as mesh:
+        t = distribute_tensor(torch.empty((16, 8)), mesh,
+                              [Replicate(), Shard(0)])
+        cost = dryrun.DeviceCost()
+        with cost:
+            t.redistribute(mesh, [Replicate(), Replicate()])
+        assert cost.summary() == {"all-gather": 16 * 8 * 4,
+                                  "total": 16 * 8 * 4}
+        part = DTensor.from_local(torch.empty((4, 4)), mesh,
+                                  [Replicate(), Partial()])
+        cost = dryrun.DeviceCost()
+        with cost:
+            part.redistribute(mesh, [Replicate(), Replicate()])
+        assert cost.summary() == {"all-reduce": 64, "total": 64}
+
+
+def _ref_arg_bytes(arch, shape_name, sizes, names):
+    """(Σ leaf bytes / shard count of the decode step's arguments under the
+    reference's specs (params bf16, cache, tokens: the port's decode takes
+    its shared position as a host int, not a tensor argument), {path: the
+    bytes a device more for each param leaf whose reference spec shards
+    its stack axis, where the port's per-layer leaves drop that entry})."""
+    jcfg = jget_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    jmodel = jbuild_model(jcfg)
+    mesh = jsh.abstract_mesh(sizes, names)
+    shape = INPUT_SHAPES[shape_name]
+    params = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))
+    cache = jspecs.cache_struct(jcfg, shape, jmodel)
+    toks = jspecs.decode_token_specs(shape)
+    shape_of = dict(zip(names, sizes))
+
+    def shards(spec):
+        return math.prod(shape_of[a] for e in spec if e is not None
+                         for a in (e if isinstance(e, tuple) else (e,)))
+
+    def nbytes(leaf):
+        return math.prod(leaf.shape) * jnp.dtype(leaf.dtype).itemsize
+
+    pflat = jax.tree_util.tree_flatten_with_path(params)[0]
+    pspecs = jax.tree_util.tree_leaves(jsh.param_specs(params, mesh),
+                                       is_leaf=lambda x: isinstance(x, JP))
+    pairs = [(l, s) for (_, l), s in zip(pflat, pspecs)]
+    pairs += list(zip(jax.tree_util.tree_leaves(cache), jax.tree_util.tree_leaves(
+        jsh.cache_specs(cache, mesh, shape.global_batch),
+        is_leaf=lambda x: isinstance(x, JP))))
+    pairs += [(toks["tokens"], jsh.batch_spec(mesh, shape.global_batch, 2))]
+    total = 0
+    for leaf, spec in pairs:
+        assert nbytes(leaf) % shards(spec) == 0
+        total += nbytes(leaf) // shards(spec)
+    extra = {}
+    for (path, leaf), spec in zip(pflat, pspecs):
+        path = jsh._leaf_path_str(path)
+        if path.startswith("stack/") and spec and spec[0] is not None:
+            extra[path] = (nbytes(leaf) // shards(spec[1:])
+                           - nbytes(leaf) // shards(spec))
+    return total, extra
+
+
+def test_run_case_xlstm_decode_on_fake_world():
+    sizes, names = (2, 4), ("data", "model")
+    r = dryrun.run_case("xlstm-125m", "decode_32k", save_dir="",
+                        mesh=sh.abstract_mesh(sizes, names))
+    assert r["cost_analysis"]["flops"] > 0
+    # XLA's "bytes accessed" / optimal_seconds have no counterpart here
+    assert set(r["cost_analysis"]) == {"flops"}
+    assert r["collective_bytes"]["total"] > 0, \
+        "model-parallel decode must communicate"
+    assert r["n_devices"] == 8 and r["mesh"] == {"data": 2, "model": 4}
+    assert r["position"] == 32_767
+    assert set(r) >= {"arch", "shape", "mesh", "param_count",
+                      "active_param_count", "swa", "memory_analysis",
+                      "cost_analysis", "collective_bytes"}
+    total, extra = _ref_arg_bytes("xlstm-125m", "decode_32k", sizes, names)
+    assert set(extra) == {f"stack/sub_{j}/norm1/{leaf}" for j in range(6)
+                          for leaf in ("scale", "bias")}
+    assert set(extra.values()) == {384}
+    mem = r["memory_analysis"]
+    assert mem["argument_size_in_bytes"] == total + sum(extra.values())
+    assert mem["peak_bytes"] >= mem["argument_size_in_bytes"]
+    # nothing stays initialised after the case
+    import torch.distributed as dist
+    assert not dist.is_initialized()

@@ -203,7 +203,8 @@ def test_unported_options_raise():
     """Options of ported slices construct and run (prefetch, trained
     predictors with oracle=False, lookahead training); pack_path keeps its
     rules; what is still refused raises: serving an encoder-decoder or a
-    VLM, offload serving of either, and `launch.train --model-axis 2`."""
+    VLM, offload serving of either, and a one-rank `launch.train
+    --model-axis 2` (2 does not divide a world of 1)."""
     import dataclasses
     import threading
     from repro_torch.core.predictor import PredictorParams
@@ -238,7 +239,7 @@ def test_unported_options_raise():
     # encoder-decoder and VLM models build and load, but the server refuses
     # them (the enc-dec with the reference's message, the VLM when built,
     # where the reference fails at its first prefill), offload serving
-    # refuses both, and training across devices is not ported
+    # refuses both, and a model axis must divide the world
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
     for arch in ("seamless-m4t-medium", "internvl2-26b"):
@@ -252,7 +253,7 @@ def test_unported_options_raise():
         with pytest.raises(SystemExit, match="dense decoder-only archs"):
             serve.main(["--arch", arch, "--mode", "offload", "--requests",
                         "1", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="distributed slice"):
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         train.main(["--arch", "granite-3-2b", "--model-axis", "2",
                     "--device", "cpu"])
 
