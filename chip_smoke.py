@@ -233,7 +233,36 @@ Phases, in order (any failure raises and the script exits non-zero):
      xlstm-125m's widths (B = 2, T = 2048, one stage) against
      `ssm.mlstm_forward` on the card (1e-5). Collectives across cards are
      `test_sharded_train_step_on_cards` in tests/test_torch_cuda.py.
-     The seconds of phases 16 to 19 are printed.
+ 20. long: granite-3-2b at its published widths in bf16 (2,533,365,760
+     parameters, seed weights) serving one 32,768-token prompt through
+     `InferenceServer`, resident and paged (page 16), for 17 greedy
+     tokens: the prefill through the default chunked flash attention
+     (40 x 32 x 32 blocks of 1024 x 1024), then 16 decode steps. Checks:
+     paged launches = 16 x 40 = 640, no plain call (counts set to 0 just
+     before the drain); each step's layer-0 call, the kernel against its
+     plain version (2e-2) and float32 math on the same bf16 values (1e-5);
+     peak allocated memory under 24 GB; (a) at T = 4,096 the flash and
+     plain forms on layer 0's q, k, v within 2e-5 in float32 (the
+     reference's rule, tests/test_attention.py:28) and 2e-2 of the
+     output's scale in bf16; (b) rows 0, 1023, 1024, 2048 and 32767 of
+     layer 0's flash output against a plain softmax over each row's keys
+     (2e-2 of the row's scale); (c) the prompt prefilled with
+     `flash_triangular=True`: last logits within 2e-2 of the default's
+     scale. Prefill seconds (both forms), decode ms a step, the peak, and
+     the paged kernel at the last step's shape (ms, device ms cold, plain
+     ms, byte bound, SDPA on the rows laid out contiguously). Then
+     xlstm-125m at its published widths cut to 2 of 12 layers (two mLSTM
+     layers, the time budget's cut; float32, remat): the bytes a batch
+     row of one mLSTM layer's forward + backward holds at T = 256 (the
+     peak's growth from 1 to 3 rows) with the scan's chunks of 128 and
+     with chunking off; B
+     for T = 4,096 such that the plain loop's bytes, scaled by T, exceed
+     80 GB; one train step at (B, 4096) with chunks (peak memory,
+     seconds); at B = 2, T = 512, remat off, the chunked loss and every
+     gradient leaf equal the unchunked ones within 1e-6 in relative L2 (a
+     leaf whose gradient is 0 but for rounding, below 1e-6 of the whole
+     gradient's norm, within 1e-6 of that norm).
+The seconds of every phase are printed (`phase_seconds`).
 
 Prints one JSON line per phase, then `{"kernels": [...]}`, the
 `nvidia-smi` name/power line, and last `{"ok": true, "device": {...}}`.
@@ -3471,6 +3500,456 @@ def sharded_phase(dev, seed: int, reduced: bool, tmp: str) -> dict:
     return row
 
 
+# -- long phase -------------------------------------------------------------------
+
+LONG_ARCH = "granite-3-2b"
+LONG_PROMPT = 32_768          # the reference's prefill_32k length
+LONG_NEW_TOKENS = 17          # the prefill's token + 16 decode steps
+REHEARSAL_LONG_PROMPT = 2100  # past FLASH_SEQ_THRESHOLD on reduced widths
+LONG_PEAK_LIMIT = 24e9        # bytes: weights, paged KV, the prefill's cache
+                              # and its block and FFN transients
+FLASH_F32_TOL = 2e-5          # the reference's flash-vs-dense rule
+                              # (tests/test_attention.py:28)
+FLASH_BF16_TOL = 2e-2         # of the output's scale: P rounded to bf16
+                              # before P.V in the flash form, after the
+                              # softmax in the plain one
+LONG_CHECK_T = 4096           # check (a): flash vs plain on layer 0's q, k, v
+LONG_ROWS = (0, 1023, 1024, 2048, 32767)   # check (b): rows of layer 0
+LONG_SSM_ARCH = "xlstm-125m"
+LONG_SSM_LAYERS = 2           # of 12, two mLSTM layers: the time budget's
+                              # cut (the scan steps through T in Python)
+LONG_SSM_T, LONG_SSM_PROBE_T = 4096, 256   # the step; the memory probe
+LONG_SSM_PROBE_ROWS = (1, 3)  # the probe's batch sizes
+LONG_SSM_CHECK = (2, 512)     # (B, T) of the chunked-vs-plain gradient check
+REHEARSAL_SSM = dict(T=160, probe_T=32, check=(2, 300))
+SSM_GRAD_L2_TOL = 1e-6        # chunked vs unchunked: the same ops, the
+                              # sums into a leaf in another order
+CARD_BYTES = 80e9             # the plain loop's residuals must exceed this
+
+
+@contextlib.contextmanager
+def capturing_flash(first: dict):
+    """Keep in `first` the arguments and output of the first
+    `layers.flash_gqa_attend` call (layer 0 of a prefill past the
+    threshold): the live q, k, v, not copies."""
+    from repro_torch.models import layers
+    real = layers.flash_gqa_attend
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        if not first:
+            first.update(args=args, kw=kw, out=out)
+        return out
+    layers.flash_gqa_attend = recording
+    try:
+        yield
+    finally:
+        layers.flash_gqa_attend = real
+
+
+@contextlib.contextmanager
+def capturing_paged(calls: list, arena):
+    """Append to `calls` the arguments of every `ops.paged_decode_attention`
+    call on `arena`'s K (layer 0: one a decode step); q, the table and cur
+    are copied, the arena is live (later steps write only past cur)."""
+    from repro_torch.kernels import ops
+    real = ops.paged_decode_attention
+
+    def recording(q, k_pages, *rest, **kw):
+        if k_pages.data_ptr() == arena.k.data_ptr():
+            calls.append((q.clone(), k_pages, rest[0], rest[1].clone(),
+                          rest[2].clone()))
+        return real(q, k_pages, *rest, **kw)
+    ops.paged_decode_attention = recording
+    try:
+        yield
+    finally:
+        ops.paged_decode_attention = real
+
+
+def scale_err(out, ref) -> tuple:
+    """(max abs error, the reference's scale max |ref|)."""
+    return (float((out.float() - ref.float()).abs().max()),
+            float(ref.float().abs().max()))
+
+
+def flash_checks(first: dict, T_check: int, rows) -> dict:
+    """Checks (a) and (b) on layer 0's captured q, k, v (bf16) and flash
+    output: (a) at T_check positions the flash and plain forms agree
+    within FLASH_F32_TOL in float32 and FLASH_BF16_TOL of the output's
+    scale in bf16; (b) each of `rows` of the whole prompt's flash output
+    against a plain softmax over that row's keys (a [1, H, 1, T] score
+    row), FLASH_BF16_TOL of the row's scale."""
+    import torch
+    from repro_torch.models import layers
+    q, k, v, pos = first["args"][:4]
+    kw = dict(first["kw"])
+    out = {"T_check": T_check}
+    with torch.inference_mode():
+        qs, ks, vs, ps = (t[:, :T_check] for t in (q, k, v, pos))
+        for name, cast in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            a = layers.flash_gqa_attend(qs.to(cast), ks.to(cast),
+                                        vs.to(cast), ps, ps, **kw)
+            b = layers.gqa_attend(qs.to(cast), ks.to(cast), vs.to(cast),
+                                  ps, ps, causal=kw["causal"],
+                                  window=kw["window"])
+            err, scale = scale_err(a, b)
+            out[f"a_{name}_max_abs_err"], out[f"a_{name}_scale"] = err, scale
+            if name == "float32":
+                ok = bool(torch.allclose(a, b, rtol=FLASH_F32_TOL,
+                                         atol=FLASH_F32_TOL))
+            else:
+                ok = err <= FLASH_BF16_TOL * scale
+            out[f"a_{name}_ok"] = ok
+            del a, b
+        out["b_rows"] = []
+        for t in rows:
+            ref = layers.gqa_attend(q[:, t:t + 1], k, v, pos[:, t:t + 1],
+                                    pos, causal=kw["causal"],
+                                    window=kw["window"])
+            err, scale = scale_err(first["out"][:, t:t + 1], ref)
+            out["b_rows"].append({"row": t, "max_abs_err": err,
+                                  "scale": scale,
+                                  "ok": err <= FLASH_BF16_TOL * scale})
+    return out
+
+
+def long_serving(dev, seed: int, reduced: bool) -> dict:
+    """granite-3-2b (bf16, published widths, seed weights) serving one
+    LONG_PROMPT-token prompt through `InferenceServer`, resident and paged
+    (page 16), for LONG_NEW_TOKENS greedy tokens; the default
+    (non-triangular) flash prefill. Counts set to 0 just before the drain,
+    read just after: paged launches = decode steps x layers, no plain
+    call. Then each decode step's layer-0 call, the kernel against its
+    plain version (PAGED_TOL bf16) and float32 math on the same values
+    (PAGED_F32_MATH_TOL); checks (a) and (b) (`flash_checks`); check (c):
+    the prompt prefilled with `flash_triangular=True`, its last logits
+    within FLASH_BF16_TOL of the default's scale; and the paged kernel at
+    the last step's shape: ms, device ms, plain ms, byte bound, SDPA on
+    the same rows laid out contiguously."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode_attention_plain
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.server import InferenceServer
+    from repro_torch.utils import tree_param_count
+
+    cuda = dev.type == "cuda"
+    cfg = get_config(LONG_ARCH, reduced=reduced, param_dtype="bfloat16",
+                     compute_dtype="bfloat16")
+    T = REHEARSAL_LONG_PROMPT if reduced else LONG_PROMPT
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    n_params = tree_param_count(params)
+    prompt = np.random.default_rng(seed + 20).integers(
+        0, cfg.vocab_size, T).astype(np.int32)
+    max_len = T + LONG_NEW_TOKENS
+    n_pages = -(-max_len // PAGE_SIZE)
+    logits_seen = []
+
+    def prefill(p, toks, cache):
+        logits, cache = model.prefill(p, {"tokens": toks}, cache)
+        logits_seen.append(logits)
+        return logits, cache
+
+    server = InferenceServer(model, params, max_slots=1, max_len=max_len,
+                             device=dev, page_size=PAGE_SIZE,
+                             num_pages=n_pages, prefill_fn=prefill)
+    handle = server.submit(Request(uid=0, prompt=prompt,
+                                   max_new_tokens=LONG_NEW_TOKENS))
+    first, calls = {}, []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_counts()
+    with capturing_flash(first), capturing_paged(
+            calls, server._pool.cache_groups[0]["sub_0"]):
+        server.drain()
+    sync(dev)
+    pc = ops.counts["paged_decode"]
+    st = server.stats
+    launches, plain = ((pc.launches, pc.plain_calls) if cuda
+                       else (pc.plain_calls, pc.launches))
+    row = {"arch": cfg.arch_id, "reduced": reduced, "dtype": "bfloat16",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "param_count": n_params,
+           "param_bytes": 2 * n_params, "prompt_len": T,
+           "new_tokens": LONG_NEW_TOKENS, "page_size": PAGE_SIZE,
+           "num_pages": n_pages, "flash_q_chunk": cfg.flash_q_chunk,
+           "flash_k_chunk": cfg.flash_k_chunk,
+           "flash_blocks": cfg.n_layers * (-(-T // cfg.flash_q_chunk))
+           * (-(-T // cfg.flash_k_chunk)),
+           "prefill_s": handle.prefill_seconds,
+           "decode_steps": st.decode_steps,
+           "decode_ms_per_step": 1e3 * st.decode_seconds / st.decode_steps,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if cuda else None),
+           "paged_launches": launches, "paged_plain_calls": plain,
+           "finish_reason": handle.result.finish_reason,
+           "tokens": list(handle.result.tokens)}
+    assert handle.result.finish_reason == "length", row
+    assert len(handle.result.tokens) == LONG_NEW_TOKENS, row
+    assert plain == 0 and launches == st.decode_steps * cfg.n_layers > 0, row
+    assert len(calls) == st.decode_steps, row
+    assert row["max_memory_allocated"] is None or \
+        row["max_memory_allocated"] < LONG_PEAK_LIMIT, row
+    assert first and first["args"][0].shape[1] == T, row
+
+    # every decode step's layer-0 call: kernel vs plain (these launches
+    # come after the counts were read)
+    steps = []
+    for q, k, v, table, cur in calls:
+        out = ops.paged_decode_attention(q, k, v, table, cur)
+        ref = paged_decode_attention_plain(q, k, v, table, cur)
+        err = float((out - ref).abs().max())
+        f32_err, f32_ok = (f32_math_check(out, q, k, v, table, cur) if cuda
+                           else (None, True))
+        ok = bool(torch.allclose(out, ref, rtol=PAGED_TOL["bfloat16"],
+                                 atol=PAGED_TOL["bfloat16"])) and f32_ok
+        steps.append({"cur": int(cur[0]), "max_abs_err": err,
+                      "f32_math_max_abs_err": f32_err, "ok": ok})
+    row["decode_step_checks"] = steps
+    assert all(s["ok"] for s in steps), steps
+    assert steps[0]["cur"] == T and steps[-1]["cur"] == max_len - 2, steps
+
+    # the paged kernel at the last step's shape
+    q, k, v, table, cur = calls[-1]
+    args = (q, k, v, table, cur)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    bound_ms, bound_by, nbytes = paged_bound(q, k, table, cur, PAGE_SIZE)
+    row["kernel_case"] = {
+        "case": "granite_32k_bf16", "B": 1, "H": cfg.n_heads,
+        "KV": cfg.n_kv_heads, "hd": cfg.head_dim, "cur": cur.tolist(),
+        "arena_dtype": "bfloat16",
+        "ms": time_ms(lambda: ops.paged_decode_attention(*args), flush),
+        "device_cold_ms": kernel_device_ms(
+            lambda: ops.paged_decode_attention(*args), flush, cold=True,
+            names=PAGED_KERNELS),
+        "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args),
+                            flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "sdpa_contiguous_ms": (sdpa_yardstick(*args, None, None, flush)
+                               if cuda else None)}
+    del calls, args, flush, q, k, v, server
+
+    # checks (a) and (b) on layer 0's q, k, v
+    rows = [r for r in LONG_ROWS if r < T] + ([T - 1] if reduced else [])
+    checks = flash_checks(first, min(LONG_CHECK_T, T), rows)
+    row["flash_checks"] = checks
+    del first
+    assert checks["a_float32_ok"] and checks["a_bfloat16_ok"], checks
+    assert all(r["ok"] for r in checks["b_rows"]), checks
+
+    # check (c): the triangular form on the same prompt
+    tri = build_model(dataclasses.replace(cfg, flash_triangular=True),
+                      device=dev)
+    toks = torch.as_tensor(prompt[None].astype(np.int64), device=dev)
+    with torch.inference_mode():
+        sync(dev)
+        t0 = time.perf_counter()
+        cache = tri.init_cache(1, max_len)
+        tri_logits, cache = tri.prefill(params, {"tokens": toks}, cache)
+        tri_logits = tri_logits.float().cpu()
+        row["triangular_prefill_s"] = time.perf_counter() - t0
+        del cache
+    err, scale = scale_err(tri_logits, logits_seen[0].float().cpu())
+    row["triangular_flash_blocks"] = cfg.n_layers * sum(
+        i + 1 for i in range(-(-T // cfg.flash_q_chunk)))
+    row.update(triangular_logits_max_abs_err=err,
+               triangular_logits_scale=scale,
+               triangular_logits_ok=err <= FLASH_BF16_TOL * scale)
+    assert row["triangular_logits_ok"], row
+    assert bool(torch.isfinite(tri_logits).all()), row
+    del params, model, tri
+    return row
+
+
+def ssm_grads(model, params, batch, chunk: int):
+    """(loss, gradient leaves) of `model.loss_fn` with the SSM scans in
+    chunks of `chunk`."""
+    from repro_torch.models import ssm
+    from repro_torch.training.train import grads_of
+    from repro_torch.utils import tree_leaves
+    before = ssm.SCAN_CHUNK
+    ssm.SCAN_CHUNK = chunk
+    try:
+        loss, _, grads = grads_of(model, params, batch)
+    finally:
+        ssm.SCAN_CHUNK = before
+    return loss, tree_leaves(grads)
+
+
+def scan_peak(layer, x, cfg, chunk: int):
+    """Peak bytes above what was allocated before of one mLSTM layer's
+    forward and backward over x [B, T, d] with the scan in chunks of
+    `chunk` (None on the CPU)."""
+    import torch
+    from repro_torch.models import ssm
+    dev = x.device
+    before = ssm.SCAN_CHUNK
+    ssm.SCAN_CHUNK = chunk
+    try:
+        if dev.type == "cuda":
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        with torch.enable_grad():
+            ssm.mlstm_forward(layer, x, cfg).sum().backward()
+        sync(dev)
+        peak = (torch.cuda.max_memory_allocated(dev) - base
+                if dev.type == "cuda" else None)
+    finally:
+        ssm.SCAN_CHUNK = before
+        for t in layer.values():
+            t.grad = None
+    return peak
+
+
+def grad_leaf_errors(paths, grads, ref) -> dict:
+    """Per leaf, ‖a - b‖ over ‖b‖ (relative L2), or for a null leaf, one
+    whose reference gradient is below 1e-6 of the whole gradient's norm,
+    over that whole norm: a gradient that is 0 in exact arithmetic is
+    rounding noise, which no relative rule holds. The input gates' biases
+    are such leaves: a constant shift of a head's input gate scales the
+    block's state and its normaliser alike (mLSTM: C q / max(|n q|, 1)
+    while |n q| >= 1; sLSTM: c / n), so the output does not see it."""
+    total = sum(float(b.float().norm()) ** 2 for b in ref) ** 0.5
+    out = {}
+    for path, a, b in zip(paths, grads, ref):
+        d, n = float((a.float() - b.float()).norm()), float(b.float().norm())
+        null = n < 1e-6 * total
+        out[path] = {"err": d / (total if null else max(n, 1e-30)),
+                     "null": null}
+    return out
+
+
+def long_ssm_train(dev, seed: int, reduced: bool) -> dict:
+    """xlstm-125m at its published widths cut to LONG_SSM_LAYERS layers
+    (float32, remat: a layer group's backward holds that group's
+    residuals, as the whole model's does): the bytes a batch row of one
+    mLSTM layer's forward + backward holds at T = LONG_SSM_PROBE_T (the
+    peak's growth over LONG_SSM_PROBE_ROWS), with the scan's chunks on and
+    off (`SCAN_CHUNK` >= T); B for T = LONG_SSM_T
+    chosen so that the plain loop's bytes, scaled by T, would exceed
+    CARD_BYTES; one `make_train_step` step at that (B, T) with chunks of
+    128 (peak memory, seconds); and at LONG_SSM_CHECK the chunked loss and
+    every gradient leaf equal the unchunked ones within SSM_GRAD_L2_TOL
+    (`grad_leaf_errors`). That check runs with the groups' remat off: on
+    the CPU, recomputing a group of layers renumbers autograd's nodes and
+    the engine adds the contributions into a layer's input in another
+    order (about 1e-6 of a leaf), which is not what the chunks do."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_data_iter
+    from repro_torch.models import build_model, ssm
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.train import TrainState, make_train_step
+    from repro_torch.utils import tree_param_count
+
+    cfg = get_config(LONG_SSM_ARCH, reduced=reduced,
+                     **({} if reduced else {"n_layers": LONG_SSM_LAYERS}))
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    T = REHEARSAL_SSM["T"] if reduced else LONG_SSM_T
+    probe_T = REHEARSAL_SSM["probe_T"] if reduced else LONG_SSM_PROBE_T
+    check_B, check_T = REHEARSAL_SSM["check"] if reduced else LONG_SSM_CHECK
+
+    def batch_of(B, T_, s):
+        return next(make_data_iter(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=T_, batch_size=B,
+            seed=seed + s), device=dev))
+
+    row = {"arch": cfg.arch_id, "reduced": reduced, "n_layers": cfg.n_layers,
+           "layer_kinds": list(cfg.layer_kinds()),
+           "d_model": cfg.d_model, "heads": cfg.n_heads,
+           "head_dim": cfg.head_dim, "remat": cfg.remat,
+           "param_count": tree_param_count(params), "dtype": cfg.param_dtype,
+           "scan_chunk": ssm.SCAN_CHUNK, "probe_seq": probe_T}
+    # the bytes a batch row of one mLSTM layer's forward + backward holds
+    # (its scan's residuals: the peak's growth from 1 to 3 rows over 2);
+    # with remat a backward pass holds one layer group's at a time
+    layer = {k: v.detach().requires_grad_(True)
+             for k, v in params["stack"][0]["sub_0"]["mixer"].items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    xs = {b: torch.randn((b, probe_T, cfg.d_model), generator=gen,
+                         device=dev) * 0.5 for b in LONG_SSM_PROBE_ROWS}
+    for name, chunk in (("plain", probe_T), ("chunked", ssm.SCAN_CHUNK)):
+        peaks = [scan_peak(layer, xs[b], cfg, chunk)
+                 for b in LONG_SSM_PROBE_ROWS]
+        row[f"probe_{name}_peaks"] = peaks
+        row[f"probe_{name}_bytes_a_row"] = (
+            None if peaks[0] is None else (peaks[1] - peaks[0])
+            / (LONG_SSM_PROBE_ROWS[1] - LONG_SSM_PROBE_ROWS[0]))
+    del layer, xs
+    if row["probe_plain_bytes_a_row"] is None:      # the CPU rehearsal
+        B = 2
+    else:     # the plain loop's residuals grow with T, a step's each
+        per_row = row["probe_plain_bytes_a_row"] * T / probe_T
+        B = math.floor(CARD_BYTES / per_row) + 1
+        row["plain_bytes_at_B"] = B * per_row
+    row.update(batch=B, seq=T)
+
+    # one step at (B, T), chunks of SCAN_CHUNK
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=1, total_steps=2)
+    step = make_train_step(model, opt_cfg)
+    state = TrainState(params, init_adamw(params, opt_cfg))
+    batch = batch_of(B, T, 22)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    row["loss"] = float(metrics["loss"])          # synchronises
+    row["step_s"] = time.perf_counter() - t0
+    row["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None)
+    row["tokens_per_s"] = B * T / row["step_s"]
+    assert math.isfinite(row["loss"]), row
+    del state, batch, metrics
+
+    # chunked vs unchunked, the same step's loss and gradients (remat off)
+    batch = batch_of(check_B, check_T, 23)
+    flat = build_model(dataclasses.replace(cfg, remat=False), device=dev)
+    l_c, g_c = ssm_grads(flat, params, batch, ssm.SCAN_CHUNK)
+    l_p, g_p = ssm_grads(flat, params, batch, check_T)
+    errs = grad_leaf_errors(leaf_paths(params), g_c, g_p)
+    worst = max(errs, key=lambda k: errs[k]["err"])
+    row.update(check_batch=check_B, check_seq=check_T, check_remat=False,
+               check_loss_chunked=float(l_c), check_loss_plain=float(l_p),
+               check_grad_max_leaf_err=errs[worst]["err"],
+               check_grad_worst_leaf=worst,
+               check_null_leaves=[k for k, v in errs.items() if v["null"]],
+               check_tol=SSM_GRAD_L2_TOL)
+    worst = errs[worst]["err"]
+    assert abs(float(l_c) - float(l_p)) <= SSM_GRAD_L2_TOL * abs(float(l_p)), \
+        row
+    assert worst <= SSM_GRAD_L2_TOL, row
+    del params, model, flat
+    return row
+
+
+def long_phase(dev, seed: int, reduced: bool) -> dict:
+    """Phase 20: a long prompt served (`long_serving`) and an SSM trained at
+    a long sequence (`long_ssm_train`), a line each."""
+    import torch
+    t0 = time.perf_counter()
+    serving = long_serving(dev, seed, reduced)
+    serving["seconds"] = time.perf_counter() - t0
+    emit({"long_serving": serving})
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = long_ssm_train(dev, seed, reduced)
+    train["seconds"] = time.perf_counter() - t0
+    emit({"long_ssm_train": train})
+    return {"serving": serving, "ssm_train": train}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3525,9 +4004,22 @@ def main(argv=None) -> int:
         emit({"build": {"seconds": time.perf_counter() - t0,
                         "libraries": [p.name for p in libs.values()]}})
 
-    kern = kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):           # the seconds since the last lap, as `name`
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+        print(f"chip_smoke: {name} {seconds[name]:.1f}s", file=sys.stderr,
+              flush=True)
+
+    reduced = args.cpu_rehearsal
+    kern = kernel_phase(dev, args.seed, reduced=reduced)
+    lap("kernel")
     sl = slice_phase(dev, args.seed, n_requests, prompt_len, new_tokens,
-                     reduced=args.cpu_rehearsal)
+                     reduced=reduced)
+    lap("slice")
     breakdown_phase(dev, sl["model"], sl["params"], sl["runtime"],
                     sl["reqs"], sl["max_len"], sl["main_ms_per_step"])
     bf = sl.pop("bf16")
@@ -3535,45 +4027,54 @@ def main(argv=None) -> int:
                     sl["reqs"], sl["max_len"], {"offload": bf["ms_per_step"]},
                     path="slice_bf16")
     bf16_launches = bf["launches"]
-    pkern = paged_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+    lap("breakdown")
+    pkern = paged_kernel_phase(dev, args.seed, reduced=reduced)
+    lap("paged_kernel")
     pg = paged_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"],
-                     reduced=args.cpu_rehearsal)
-    ckern = coact_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+                     reduced=reduced)
+    lap("paged")
+    ckern = coact_kernel_phase(dev, args.seed, reduced=reduced)
+    lap("coact_kernel")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         pk = pack_phase(dev, args.seed, sl, tmp)
+        lap("pack")
         pf = prefetch_phase(dev, args.seed, sl, bf, pk["path"])
         os.remove(pk["path"])
-        cli_phase(dev, args.seed, tmp, reduced=args.cpu_rehearsal)
+        lap("prefetch")
+        cli_phase(dev, args.seed, tmp, reduced=reduced)
+        lap("cli")
     skern = swa_kernel_phase(dev, args.seed, W0=(
-        REHEARSAL_SWA_W if args.cpu_rehearsal
-        else sl["model"].cfg.sliding_window))
+        REHEARSAL_SWA_W if reduced else sl["model"].cfg.sliding_window))
+    lap("swa_kernel")
     sw = swa_phase(dev, args.seed, sl["model"], sl["params"], sl["runtime"],
                    bf)
     del bf
-    gkern = segment_kernel_phase(dev, args.seed, reduced=args.cpu_rehearsal)
+    lap("swa")
+    gkern = segment_kernel_phase(dev, args.seed, reduced=reduced)
+    lap("segment_kernel")
     sp = sparse_phase(dev, args.seed, sl["model"], sl["params"], sl["reqs"],
                       sl["max_len"])
+    lap("sparse")
     fam = families_phase(dev, args.seed, n_requests, prompt_len, new_tokens,
-                         reduced=args.cpu_rehearsal)
-    seconds = {}
-    t0 = time.perf_counter()
+                         reduced=reduced)
+    lap("families")
     ed = generation_phase(dev, args.seed, "encdec", "seamless-m4t-medium",
-                          reduced=args.cpu_rehearsal)
-    seconds["encdec"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+                          reduced=reduced)
+    lap("encdec")
     vl = generation_phase(dev, args.seed, "vlm", "internvl2-26b",
-                          reduced=args.cpu_rehearsal,
-                          **({} if args.cpu_rehearsal
-                             else {"n_layers": VLM_LAYERS}))
-    seconds["vlm"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+                          reduced=reduced,
+                          **({} if reduced else {"n_layers": VLM_LAYERS}))
+    lap("vlm")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
-        train_phase(dev, args.seed, args.cpu_rehearsal, tmp)
-    seconds["train"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+        train_phase(dev, args.seed, reduced, tmp)
+    lap("train")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as tmp:
-        sharded_phase(dev, args.seed, args.cpu_rehearsal, tmp)
-    seconds["sharded"] = time.perf_counter() - t0
+        sharded_phase(dev, args.seed, reduced, tmp)
+    lap("sharded")
+    for key in ("model", "params", "runtime"):     # the card's memory
+        sl.pop(key)
+    lg = long_phase(dev, args.seed, reduced)
+    lap("long")
     emit({"phase_seconds": seconds})
     if args.cpu_rehearsal:
         print("chip_smoke: CPU rehearsal finished (no result)", file=sys.stderr)
@@ -3614,7 +4115,9 @@ def main(argv=None) -> int:
         "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
         "launches": pg["launches"]["offload_float32"],
         "launches_by_run": {**pg["launches"],
-                            "families_granite_paged": fam["paged"]},
+                            "families_granite_paged": fam["paged"],
+                            "long_granite_32k": lg["serving"][
+                                "paged_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in pkern["cases"]),
         "ms": paged_case["ms"],
         "device_cold_ms": paged_case["device_cold_ms"],
@@ -3625,7 +4128,9 @@ def main(argv=None) -> int:
         # mistral-7b heads at 4096 positions on a bf16 arena beside it
         "mistral7b_long_bf16": {k: paged_bf16[k] for k in (
             "ms", "device_cold_ms", "device_warm_ms", "plain_ms", "bound_ms",
-            "bound_by", "sdpa_contiguous_ms")}}, {
+            "bound_by", "sdpa_contiguous_ms")},
+        # phase 20's decode: granite-3-2b heads at 32,784 positions, bf16
+        "granite_32k_bf16": lg["serving"]["kernel_case"]}, {
         # the offline stage's shape (T = 512, N = 4096); every case above
         "name": "coact_accumulate", "route": "cuda",
         "source": COACT_SOURCE, "replaces": COACT_REPLACES,

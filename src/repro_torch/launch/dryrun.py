@@ -186,15 +186,18 @@ def _place_batch(batch: Dict[str, torch.Tensor], mesh):
 
 
 def build_step(arch: str, shape_name: str, mesh,
-               microbatches: Optional[int] = None):
+               microbatches: Optional[int] = None,
+               config_overrides: Optional[dict] = None):
     """(step, args, meta) for one (arch, shape) case on `mesh` (a device
     mesh of a fake world, inside its fake mode): `step(*args)` runs the
     train, prefill or decode step of `arch` (bf16 params and compute) on
-    the placed inputs."""
+    the placed inputs. `config_overrides`: ModelConfig field overrides
+    (e.g. flash_triangular=True), as the reference takes them."""
     from repro_torch.models import build_model
     from repro_torch.training.optimizer import AdamWConfig, init_adamw
     from repro_torch.training.train import TrainState, make_train_step
-    cfg = get_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = get_config(arch, param_dtype="bfloat16", compute_dtype="bfloat16",
+                     **(config_overrides or {}))
     model = build_model(cfg, device="cpu")
     shape = INPUT_SHAPES[shape_name]
     params = model.init_params(torch.Generator().manual_seed(0))
@@ -270,13 +273,16 @@ def trace_case(step, args) -> Dict[str, Any]:
 def run_case(arch: str, shape_name: str, multi_pod: bool = False,
              microbatches: Optional[int] = None,
              save_dir: str = "experiments/dryrun",
-             mesh=None) -> Dict[str, Any]:
+             mesh=None, config_overrides: Optional[dict] = None
+             ) -> Dict[str, Any]:
     """Trace one case on a fake world of `mesh`'s shape (an abstract mesh;
-    default the production mesh) and save its JSON under `save_dir`."""
+    default the production mesh; `config_overrides` as `build_step`) and
+    save its JSON under `save_dir`."""
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     with fake_world(mesh) as dmesh:
         t0 = time.perf_counter()
-        step, args, meta = build_step(arch, shape_name, dmesh, microbatches)
+        step, args, meta = build_step(arch, shape_name, dmesh, microbatches,
+                                      config_overrides=config_overrides)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
         traced = trace_case(step, args)

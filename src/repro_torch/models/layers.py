@@ -3,10 +3,13 @@
 Plain functions over parameter dicts of tensors, each taking the
 ModelConfig, in the layouts of the reference package (`w_up` is [d, d_ff],
 `w_down` [d_ff, d], attention projections [d, heads * head_dim]) so that
-weights converted from it compare like with like. Attention is the plain
-einsum formulation (`gqa_attend`), used for prefill and for decode against a
-KV cache. The `init_*` functions draw from a `torch.Generator` and create
-their tensors on that generator's device.
+weights converted from it compare like with like. Attention over a whole
+sequence is the plain einsum formulation (`gqa_attend`) up to
+`FLASH_SEQ_THRESHOLD` positions and the reference's chunked online softmax
+past it (`flash_gqa_attend`, `flash_gqa_attend_triangular`), which never
+holds more than one [q_chunk, k_chunk] block of scores. The `init_*`
+functions draw from a `torch.Generator` and create their tensors on that
+generator's device.
 """
 from __future__ import annotations
 
@@ -163,20 +166,201 @@ def _gqa_attend(q, k, v, q_pos, k_pos, k_valid, causal, window):
     return out.reshape(B, T, H * hd)
 
 
+FLASH_SEQ_THRESHOLD = 2048
+
+
+def _flash_block(q_i, k_j, v_j, mask, m, l, acc, scale):
+    """One KV block of the online softmax, the reference's `kv_step`:
+    scores in float32 times `scale`, NEG_INF where `mask` [B, qc, kc] is
+    False, the running max, alpha = exp(m - m_new), P set to 0 where
+    masked and cast to v's dtype for P·V, the accumulator in float32.
+    q_i [B, KV, G, qc, hd], k_j / v_j [B, KV, kc, hd]; m, l [B, KV, G, qc],
+    acc [B, KV, G, qc, hd]. Returns the new (m, l, acc)."""
+    B, KV, G, qc, hd = q_i.shape
+    kc = k_j.shape[2]
+    dt = torch.promote_types(q_i.dtype, k_j.dtype)   # as jnp.einsum
+    s = (q_i.reshape(B, KV, G * qc, hd).to(dt)
+         @ k_j.to(dt).transpose(-1, -2)).view(B, KV, G, qc, kc)
+    s = s.float() * scale
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    pmat = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    l = l * alpha + pmat.sum(dim=-1)
+    pv = (pmat.to(v_j.dtype).reshape(B, KV, G * qc, kc) @ v_j)
+    acc = acc * alpha[..., None] + pv.view(B, KV, G, qc, hd).float()
+    return m_new, l, acc
+
+
+def _flash_start(B, KV, G, qc, hd, device):
+    m = torch.full((B, KV, G, qc), NEG_INF, dtype=torch.float32,
+                   device=device)
+    l = torch.zeros((B, KV, G, qc), dtype=torch.float32, device=device)
+    acc = torch.zeros((B, KV, G, qc, hd), dtype=torch.float32, device=device)
+    return m, l, acc
+
+
+def _flash_out(l, acc, dtype):
+    """acc / max(l, 1e-30) in `dtype`, [B, KV, G, qc, hd] -> [B, qc, H*hd]."""
+    B, KV, G, qc, hd = acc.shape
+    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, qc, KV * G * hd)
+
+
+def _chunks(t: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """[B, n * size, KV, (G,) hd] -> [n, B, KV, (G,) size, hd], contiguous:
+    each chunk's heads leading its positions, as the block products take
+    them."""
+    t = t.reshape(t.shape[0], n, size, *t.shape[2:])
+    return t.movedim(2, -2).movedim(1, 0).contiguous()
+
+
+def flash_gqa_attend(
+    q: torch.Tensor,                 # [B, T, H, hd]
+    k: torch.Tensor,                 # [B, S, KV, hd]
+    v: torch.Tensor,
+    q_pos: torch.Tensor,             # [B, T]
+    k_pos: torch.Tensor,             # [B, S]
+    k_valid: Optional[torch.Tensor] = None,   # [B, S] bool
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax chunked attention (the reference's flash attention in
+    jnp), [B, T, H * hd]: the same function as `gqa_attend` in O(T) memory.
+    An outer loop over query chunks, an inner one over every KV chunk;
+    each block's mask is built from its own positions and `k_valid`, so no
+    [B, T, S] tensor exists. Queries are padded with position 0 and keys
+    with position 0 and invalid, as the reference pads. Under sharding each
+    rank attends its own rows and KV heads (`rows_and_heads`)."""
+    def attend(q, k, v, q_pos, k_pos, k_valid):
+        return _flash_gqa_attend(q, k, v, q_pos, k_pos, k_valid, causal,
+                                 window, q_chunk, k_chunk)
+    return rows_and_heads(attend, q, (q, k, v, q_pos, k_pos, k_valid),
+                          (2, 2, 2, None, None, None), k.shape[2], (2,))
+
+
+def _flash_gqa_attend(q, k, v, q_pos, k_pos, k_valid, causal, window,
+                      q_chunk, k_chunk):
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk, k_chunk = min(q_chunk, T), min(k_chunk, S)
+    padT, padS = (-T) % q_chunk, (-S) % k_chunk
+    if k_valid is None:
+        k_valid = torch.ones((B, S), dtype=torch.bool, device=k.device)
+    if padT:
+        q = F.pad(q, (0, 0, 0, 0, 0, padT))
+        q_pos = F.pad(q_pos, (0, padT))
+    if padS:
+        k = F.pad(k, (0, 0, 0, 0, 0, padS))
+        v = F.pad(v, (0, 0, 0, 0, 0, padS))
+        k_pos = F.pad(k_pos, (0, padS))
+        k_valid = F.pad(k_valid, (0, padS))
+    nq, nk = (T + padT) // q_chunk, (S + padS) // k_chunk
+    qc = _chunks(q.reshape(B, T + padT, KV, G, hd), nq, q_chunk)
+    kc, vc = _chunks(k, nk, k_chunk), _chunks(v, nk, k_chunk)
+    qp = q_pos.reshape(B, nq, q_chunk)
+    kp = k_pos.reshape(B, nk, k_chunk)
+    kval = k_valid.reshape(B, nk, k_chunk)
+    scale = hd ** -0.5
+    outs = []
+    for i in range(nq):
+        qp_i = qp[:, i]
+        m, l, acc = _flash_start(B, KV, G, q_chunk, hd, q.device)
+        for j in range(nk):
+            kp_j = kp[:, j]
+            mask = kval[:, j][:, None, :]
+            if causal:
+                mask = mask & (kp_j[:, None, :] <= qp_i[:, :, None])
+            if window > 0:
+                mask = mask & (qp_i[:, :, None] - kp_j[:, None, :] < window)
+            m, l, acc = _flash_block(qc[i], kc[j], vc[j], mask, m, l, acc,
+                                     scale)
+        outs.append(_flash_out(l, acc, q.dtype))
+    return torch.cat(outs, dim=1)[:, :T]
+
+
+def flash_gqa_attend_triangular(
+    q: torch.Tensor,                 # [B, T, H, hd]
+    k: torch.Tensor,                 # [B, T, KV, hd] (self-attention: S == T)
+    v: torch.Tensor,
+    positions: torch.Tensor,         # [B, T] == arange
+    window: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Causal flash attention that skips the KV blocks wholly masked, the
+    reference's triangular form: query chunk i visits only KV chunks
+    lo..i, lo from the window's horizon. Needs S == T and positions that
+    are an arange (self-attention prefill or training); padded positions
+    are -1 and never attended. Under sharding as `flash_gqa_attend`."""
+    def attend(q, k, v, positions):
+        return _flash_gqa_attend_triangular(q, k, v, positions, window,
+                                            chunk)
+    return rows_and_heads(attend, q, (q, k, v, positions),
+                          (2, 2, 2, None), k.shape[2], (2,))
+
+
+def _flash_gqa_attend_triangular(q, k, v, positions, window, chunk):
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        positions = F.pad(positions, (0, pad), value=-1)
+    n = (T + pad) // chunk
+    qc = _chunks(q.reshape(B, T + pad, KV, G, hd), n, chunk)
+    kc, vc = _chunks(k, n, chunk), _chunks(v, n, chunk)
+    pc = positions.reshape(B, n, chunk)
+    scale = hd ** -0.5
+    outs = []
+    for i in range(n):
+        lo = 0 if window <= 0 else max(0, i - (window - 1) // chunk - 1)
+        qp_i = pc[:, i]
+        m, l, acc = _flash_start(B, KV, G, chunk, hd, q.device)
+        for j in range(lo, i + 1):
+            kp_j = pc[:, j]
+            mask = ((kp_j[:, None, :] <= qp_i[:, :, None])
+                    & (kp_j[:, None, :] >= 0))
+            if window > 0:
+                mask = mask & (qp_i[:, :, None] - kp_j[:, None, :] < window)
+            m, l, acc = _flash_block(qc[i], kc[j], vc[j], mask, m, l, acc,
+                                     scale)
+        outs.append(_flash_out(l, acc, q.dtype))
+    return torch.cat(outs, dim=1)[:, :T]
+
+
 def attention_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, causal: bool = True,
                       window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
                                                 torch.Tensor]:
-    """Self-attention over a full sequence (prefill / calibration forward).
+    """Self-attention over a full sequence (train / prefill / encoder).
     Returns (output [B, T, d], roped k, v) so prefill can fill its cache.
-
-    The reference switches to chunked flash attention past 2048 positions
-    to bound memory; the port keeps the plain [T, S] score matrix."""
+    Past `FLASH_SEQ_THRESHOLD` positions it attends through the chunked
+    flash form, triangular when causal and `cfg.flash_triangular`, with
+    `cfg.flash_q_chunk` / `flash_k_chunk`, as the reference routes."""
     q, k, v = _project_qkv(p, x, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = gqa_attend(q, k, v, positions, positions, causal=causal,
-                     window=window)
+    if x.shape[1] > FLASH_SEQ_THRESHOLD:
+        if causal and cfg.flash_triangular:
+            out = flash_gqa_attend_triangular(q, k, v, positions,
+                                              window=window,
+                                              chunk=cfg.flash_q_chunk)
+        else:
+            out = flash_gqa_attend(q, k, v, positions, positions,
+                                   causal=causal, window=window,
+                                   q_chunk=cfg.flash_q_chunk,
+                                   k_chunk=cfg.flash_k_chunk)
+    else:
+        out = gqa_attend(q, k, v, positions, positions, causal=causal,
+                         window=window)
     return out @ p["wo"], k, v
 
 
@@ -184,15 +368,20 @@ def cross_attention_forward(p: Params, x: torch.Tensor,
                             memory_k: torch.Tensor, memory_v: torch.Tensor,
                             cfg: ModelConfig) -> torch.Tensor:
     """Attention of x [B, T, d] over the encoder memory's K/V [B, S, KV, hd]
-    (from `project_memory_kv`): no rope (every position 0), not causal.
-    Like `attention_forward`, the plain [T, S] score matrix at any length
-    (the reference takes its chunked flash form past 2048 positions)."""
+    (from `project_memory_kv`): no rope (every position 0), not causal;
+    the chunked flash form when T or S passes `FLASH_SEQ_THRESHOLD`."""
     B, T = x.shape[0], x.shape[1]
     q = split_last(x @ p["wq"], cfg.n_heads)
     S = memory_k.shape[1]
     zeros_q = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     zeros_k = torch.zeros((B, S), dtype=torch.int32, device=x.device)
-    out = gqa_attend(q, memory_k, memory_v, zeros_q, zeros_k, causal=False)
+    if T > FLASH_SEQ_THRESHOLD or S > FLASH_SEQ_THRESHOLD:
+        out = flash_gqa_attend(q, memory_k, memory_v, zeros_q, zeros_k,
+                               causal=False, q_chunk=cfg.flash_q_chunk,
+                               k_chunk=cfg.flash_k_chunk)
+    else:
+        out = gqa_attend(q, memory_k, memory_v, zeros_q, zeros_k,
+                         causal=False)
     return out @ p["wo"]
 
 

@@ -6,12 +6,15 @@ All three expose, as the reference's `src/repro/models/ssm.py` does:
   *_decode_step(p, x_t, state, cfg)         -> (y_t, state) (one token)
   *_init_state(batch, cfg, device, dtype)   -> state NamedTuple
 
-The reference scans time in checkpointed chunks whose padded steps leave
-the carry unchanged; the port runs the same recurrence as a plain loop over
-the T real steps, which gives the same outputs and the same final state.
-States are exact: the decode step continues any prefix the sequence
-forward processed. Every state leaf is its own tensor with the batch on
-axis 0, so a server can copy one row of each in place.
+Sequence forwards run the time recurrence in chunks of `SCAN_CHUNK` steps,
+each chunk checkpointed while autograd records (about sqrt(T) of the
+residuals kept for the backward pass), as the reference's
+`_chunked_time_scan`. The reference pads the last chunk with steps that
+leave the carry unchanged (`lax.scan` needs one shape); the port loops over
+the T real steps only, so its last chunk is shorter and the outputs and
+final state are the same. States are exact: the decode step continues any
+prefix the sequence forward processed. Every state leaf is its own tensor
+with the batch on axis 0, so a server can copy one row of each in place.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.distributed.dtensor import (elementwise, rows_and_heads,
@@ -26,6 +30,7 @@ from repro_torch.distributed.dtensor import (elementwise, rows_and_heads,
 from repro_torch.models.layers import _normal, apply_activation
 
 Params = Dict[str, torch.Tensor]
+SCAN_CHUNK = 128
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -40,9 +45,30 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _scan(step, carry, xs, T: int):
     """Run `step(carry, inputs_t) -> (carry, y_t)` over t < T (inputs are
-    time-major [T, ...]); returns (final carry, ys stacked on axis 1)."""
+    time-major [T, ...]); returns (final carry, ys stacked on axis 1).
+    The steps run in chunks of `SCAN_CHUNK` (read at each call); while
+    autograd records and an input or carry leaf requires grad, each chunk
+    is checkpointed: its residuals are recomputed in the backward pass
+    from the chunk's carry, so the pass keeps one carry a chunk and one
+    chunk's residuals."""
+    leaves = list(carry) if isinstance(carry, tuple) else [carry]
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in leaves + list(xs))
     ys = []
-    for t in range(T):
+    for t0 in range(0, T, SCAN_CHUNK):
+        part = [a[t0:min(t0 + SCAN_CHUNK, T)] for a in xs]
+        if remat:
+            carry, y = torch.utils.checkpoint.checkpoint(
+                _scan_steps, step, carry, part, use_reentrant=False)
+        else:
+            carry, y = _scan_steps(step, carry, part)
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
+
+
+def _scan_steps(step, carry, xs):
+    ys = []
+    for t in range(xs[0].shape[0]):
         carry, y = step(carry, tuple(a[t] for a in xs))
         ys.append(y)
     return carry, torch.stack(ys, dim=1)

@@ -1524,3 +1524,77 @@ def test_sharded_train_step_one_rank_on_card(dev, tmp_path, arch):
     for a, b in zip(tree_leaves(full), tree_leaves(new_un.params)):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+def test_flash_prefill_on_card(dev):
+    """Check (a) of chip_smoke's phase 20 at granite-3-2b's heads (32 / 8
+    x 64): at T = 4096 the chunked flash form and the plain [T, S] form
+    agree on the card within 2e-5 in float32 (the reference's flash rule,
+    tests/test_attention.py:28) and within 2e-2 of the output's scale in
+    bf16 (P rounded before P.V in one, after the softmax in the other),
+    causal and with a window of 1000, and the attention layer routes
+    there past 2048 positions."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(25)
+    T, H, KV, hd = 4096, 32, 8, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, T, n, hd))
+                                .astype(np.float32)).to(dev)
+               for n in (H, KV, KV))
+    pos = torch.arange(T, device=dev)[None]
+    with torch.inference_mode():
+        for window in (0, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (q.to(dtype), k.to(dtype), v.to(dtype), pos, pos)
+                a = layers.flash_gqa_attend(*args, window=window)
+                b = layers.gqa_attend(*args, window=window)
+                assert a.dtype == dtype and bool(torch.isfinite(a).all())
+                if dtype == torch.float32:
+                    torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+                else:
+                    scale = float(b.float().abs().max())
+                    err = float((a.float() - b.float()).abs().max())
+                    assert err <= 2e-2 * scale, (window, err, scale)
+
+
+def test_chunked_scan_grads_on_card(dev):
+    """xlstm-125m at its published widths, its first 4 layers (3 mLSTM and
+    the sLSTM), B = 2, T = 512, on the card: the loss and every gradient
+    leaf with the scans in checkpointed chunks of 128 equal those with
+    chunking off (`SCAN_CHUNK` = T) within 1e-6 in relative L2 (the same
+    ops; the sums into a leaf may run in another order). A leaf whose
+    gradient is 0 in exact arithmetic (below 1e-6 of the whole gradient's
+    norm: the input gates' biases, a shift of which scales a block's
+    state and its normaliser alike) is rounding noise and is held within
+    1e-6 of the whole gradient's norm. The layer group's remat is off:
+    recomputing a group reorders the engine's sums into a layer's input,
+    which is not what this checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, ssm
+    from repro_torch.training.train import grads_of
+    from repro_torch.utils import tree_leaves
+    cfg = get_config("xlstm-125m", n_layers=4, remat=False)
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 512))).to(dev)
+    batch = {"tokens": tokens}
+    runs = {}
+    before = ssm.SCAN_CHUNK
+    try:
+        for chunk in (128, 512):
+            ssm.SCAN_CHUNK = chunk
+            loss, _, grads = grads_of(model, params, batch)
+            runs[chunk] = (float(loss), tree_leaves(grads))
+    finally:
+        ssm.SCAN_CHUNK = before
+    (l_c, g_c), (l_p, g_p) = runs[128], runs[512]
+    assert abs(l_c - l_p) <= 1e-6 * abs(l_p)
+    total = float(torch.sqrt(sum((b ** 2).sum() for b in g_p)))
+    n_null = 0
+    for a, b in zip(g_c, g_p):
+        assert bool(torch.isfinite(a).all())
+        norm = float(b.norm())
+        null = norm < 1e-6 * total
+        n_null += null
+        assert float((a - b).norm()) <= 1e-6 * (total if null else norm)
+    assert n_null <= cfg.n_layers     # the input gates' biases, one a layer

@@ -198,3 +198,37 @@ def test_run_case_xlstm_decode_on_fake_world():
     # nothing stays initialised after the case
     import torch.distributed as dist
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_run_case_traces_flash_past_the_threshold(monkeypatch, triangular):
+    """A reduced granite-3-2b prefill of 2100 positions (past
+    `FLASH_SEQ_THRESHOLD`) on a fake (2, 4) world traces the flash form
+    the config names, once a layer, and holds less at its peak than one
+    layer's plain [T, S] float32 scores alone would."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import layers
+    T, B = 2100, 4
+    monkeypatch.setitem(dryrun.INPUT_SHAPES, "prefill_2k",
+                        InputShape("prefill_2k", T, B, "prefill"))
+    calls = []
+    name = ("_flash_gqa_attend_triangular" if triangular
+            else "_flash_gqa_attend")
+    real = getattr(layers, name)
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+    monkeypatch.setattr(layers, name, counted)
+    overrides = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                     d_ff=128, vocab_size=128, flash_q_chunk=512,
+                     flash_k_chunk=512, flash_triangular=triangular)
+    r = dryrun.run_case("granite-3-2b", "prefill_2k", save_dir="",
+                        mesh=sh.abstract_mesh((2, 4), ("data", "model")),
+                        config_overrides=overrides)
+    # each rank attends its own 2 rows and all 4 heads (2 KV heads do not
+    # divide the model axis of 4)
+    assert calls == [(B // 2, T, 4, 16)] * 2
+    plain_scores = (B // 2) * 4 * T * T * 4
+    assert 0 < r["memory_analysis"]["peak_bytes"] < plain_scores
+    assert r["cost_analysis"]["flops"] > 0
