@@ -29,6 +29,50 @@ def replicated(t: torch.Tensor) -> torch.Tensor:
                           [Replicate()] * t.device_mesh.ndim)
 
 
+def reduced(t: torch.Tensor) -> torch.Tensor:
+    """`t` with its partial sums reduced (an all-reduce of each `Partial`
+    mesh dim, which becomes replicated) and its shards kept; a plain
+    tensor unchanged. A partial sum met by a sharded operand (a bias, a
+    norm's scale) would otherwise have to be turned into a partial itself,
+    which some torch versions refuse."""
+    if not is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+def write_rows_(dst: torch.Tensor, cols: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """dst[b, cols[b, t]] = src[b, t] for every row b, in place; returns
+    `dst`. Under sharding each rank writes its own shard of `dst` (an
+    indexed write, `index_put_`, has no DTensor strategy on some torch
+    versions): `src` is taken in `dst`'s placements and `cols` in its
+    rows'. `dst` may be sharded on its rows and on dims past its second,
+    never on the second (the one `cols` indexes) nor partial."""
+    if not is_dtensor(dst):
+        rows = torch.arange(dst.shape[0], device=dst.device)[:, None]
+        dst[rows, cols] = src
+        return dst
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, places = dst.device_mesh, list(dst.placements)
+    if any(p.is_partial() or (isinstance(p, Shard) and p.dim == 1)
+           for p in places):
+        raise ValueError(f"cannot write rows into placements {places}")
+    row_places = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                  for p in places]
+
+    def local(t, want):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, want).to_local()
+    d = dst.to_local()
+    rows = torch.arange(d.shape[0], device=d.device)[:, None]
+    d[rows, local(cols, row_places)] = local(src, places)
+    return dst
+
+
 def batch_placed(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """`t` with its leading (batch) dim sharded as `like`'s and every other
     dim replicated: the activations' layout that the reference's

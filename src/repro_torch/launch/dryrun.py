@@ -254,10 +254,18 @@ def build_step(arch: str, shape_name: str, mesh,
 
 def trace_case(step, args) -> Dict[str, Any]:
     """Run `step(*args)` once under the per-device counters: argument
-    bytes, peak memory, FLOPs and collective bytes (rank 0's)."""
+    bytes, peak memory, FLOPs and collective bytes (rank 0's). DTensor
+    derives an op's output shape by running the op on fake tensors of the
+    global shapes, the first time it meets the op's input specs; the
+    counters would take those tensors and FLOPs for the device's (a
+    granite-3-2b prefill_32k layer's FFN: [32, 32768, 8192] a tensor on
+    (16, 16)). So the step runs once uncounted first, which fills
+    DTensor's sharding cache, and the counted run meets no such tensor."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
     arg_bytes = _local_bytes(args)
+    with implicit_replication():
+        step(*args)
     tracker = MemTracker()
     tracker.track_external(*_locals(args))
     cost = DeviceCost()

@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.dtensor import batch_placed
 from repro_torch.models.kvcache import (KVCache, SWACache, attend_full_cache,
                                         init_kv_cache, init_swa_cache,
-                                        kv_write, swa_write)
+                                        kv_write, swa_attend, swa_write)
 from repro_torch.models.layers import (_normal, _project_qkv, apply_norm,
                                        attention_forward,
                                        cross_attention_forward, ffn_forward,
@@ -179,12 +179,9 @@ def decoder_decode_step(p: Params, x: torch.Tensor, position,
         k = rope(k, pos_arr, cfg.rope_theta)
         kv = cache.self_kv[l]
         if isinstance(kv, SWACache):
-            # imported here: the kernels' plain versions import this package
-            from repro_torch.kernels import ops
             swa_write(kv, k, v, pos_arr)
-            out = ops.swa_decode_attention(
-                q[:, 0].contiguous(), kv.k, kv.v, kv.pos, cur,
-                window=window or cfg.sliding_window)
+            out = swa_attend(q[:, 0].contiguous(), kv, cur,
+                             window or cfg.sliding_window)
             a = out.reshape(B, 1, -1)
         elif isinstance(kv, KVCache):
             kv_write(kv, k, v, position)

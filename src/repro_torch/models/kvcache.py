@@ -23,6 +23,7 @@ from typing import NamedTuple, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.dtensor import rows_and_heads, write_rows_
 from repro_torch.models.layers import gqa_attend
 
 
@@ -211,13 +212,27 @@ def swa_write(cache: SWACache, k_new: torch.Tensor, v_new: torch.Tensor,
     W = cache.k.shape[1]
     if k_new.shape[1] > W:
         k_new, v_new, positions = k_new[:, -W:], v_new[:, -W:], positions[:, -W:]
-    positions = positions.long()
-    rows = torch.arange(cache.k.shape[0], device=k_new.device)[:, None]
-    slots = positions % W
-    cache.k[rows, slots] = k_new.to(cache.k.dtype)
-    cache.v[rows, slots] = v_new.to(cache.v.dtype)
-    cache.pos[rows, slots] = positions.to(cache.pos.dtype)
+    slots = positions.long() % W
+    write_rows_(cache.k, slots, k_new.to(cache.k.dtype))
+    write_rows_(cache.v, slots, v_new.to(cache.v.dtype))
+    write_rows_(cache.pos, slots, positions.to(cache.pos.dtype))
     return cache
+
+
+def swa_attend(q1: torch.Tensor, cache: SWACache, cur: torch.Tensor,
+               window: int) -> torch.Tensor:
+    """`ops.swa_decode_attention` of one token's query q1 [B, H, hd] over
+    the ring; `cur` [B] per row or [] shared. Under sharding each rank
+    attends its own rows and KV heads (the plain version's [B, KV, G, hd]
+    view of a head-sharded q is uneven)."""
+    # imported here: the kernels' plain versions import this package
+    from repro_torch.kernels import ops
+
+    def attend(q1, k, v, pos, cur):
+        return ops.swa_decode_attention(q1, k, v, pos, cur, window=window)
+    return rows_and_heads(attend, q1, (q1, cache.k, cache.v, cache.pos, cur),
+                          (1, 2, 2, None, None), cache.k.shape[2], (1,),
+                          (0, 0, 0, 0, 0 if cur.ndim else None))
 
 
 # -- cached attention -----------------------------------------------------------

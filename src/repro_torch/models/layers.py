@@ -20,8 +20,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.dtensor import (replicated, rows_and_heads,
-                                           split_last)
+from repro_torch.distributed.dtensor import (reduced, replicated,
+                                           rows_and_heads, split_last)
 
 Params = Dict[str, torch.Tensor]
 
@@ -65,7 +65,9 @@ def init_norm(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
+    # a residual stream of partial sums is reduced first (the norm's scale
+    # and bias are sharded)
+    xf = reduced(x).float()
     if cfg.norm == "rmsnorm":
         var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + 1e-6) * p["scale"].float()

@@ -179,16 +179,14 @@ class Model:
                 else torch.ones(targets.shape, device=h.device)).float()
         B, T, d = h.shape
         chunk = min(self.CE_CHUNK, T)
-        pad = (-T) % chunk
-        if pad:
-            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-            targets = torch.nn.functional.pad(targets, (0, pad))
-            mask = torch.nn.functional.pad(mask, (0, pad))
         embed = params["embed"]
 
         def chunk_ce(h_c, t_c, m_c):
             logits = unembed(embed, h_c, cfg)                 # [B, chunk, V]
-            maxl = logits.max(dim=-1, keepdim=True).values.detach().float()
+            # the values alone (`amax`): a max with indices over the
+            # vocab-sharded logits makes DTensor convert the indices to
+            # global ones on some torch versions, a host read
+            maxl = torch.amax(logits, dim=-1, keepdim=True).detach().float()
             shifted = logits.float() - maxl
             logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
             iota = torch.arange(logits.shape[-1], device=logits.device)
@@ -199,7 +197,10 @@ class Model:
         remat = torch.is_grad_enabled()
         ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-        for s in range(0, T + pad, chunk):
+        # the last chunk is short where the reference pads it: its padded
+        # positions carry mask 0 and add nothing (and `F.pad` of a DTensor
+        # mis-sizes its placements on some torch versions)
+        for s in range(0, T, chunk):
             args = (h[:, s:s + chunk], targets[:, s:s + chunk],
                     mask[:, s:s + chunk])
             ce_sum = ce_sum + (torch.utils.checkpoint.checkpoint(

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
-from repro_torch.distributed.dtensor import (elementwise, rows_and_heads,
-                                           split_last)
+from repro_torch.distributed.dtensor import (elementwise, reduced,
+                                           rows_and_heads, split_last)
 from repro_torch.models.layers import _normal, apply_activation
 
 Params = Dict[str, torch.Tensor]
@@ -122,7 +122,9 @@ def _mamba_ssm_inputs(p: Params, x_conv: torch.Tensor, cfg: ModelConfig):
     """x_conv: [..., di] post-conv activations -> (dt, B_t, C_t)."""
     _, N, _, R = _mamba_dims(cfg)
     dt_ = x_conv.dtype
-    proj = x_conv @ p["x_proj"].to(dt_)
+    # a contraction over sharded channels: its partial sums reduced before
+    # dt_bias (sharded) is added
+    proj = reduced(x_conv @ p["x_proj"].to(dt_))
     dt_r, B_t, C_t = torch.split(proj, [R, N, N], dim=-1)
     dt = _softplus(dt_r @ p["dt_proj"].to(dt_) + p["dt_bias"].to(dt_))
     return dt, B_t, C_t

@@ -38,7 +38,8 @@ from repro_torch.models.kvcache import (KVCache, PagedKVCache,
                                         paged_kv_write_rows,
                                         paged_quant_kv_write_rows,
                                         paged_targets, quant_kv_write,
-                                        quant_kv_write_rows, swa_write)
+                                        quant_kv_write_rows, swa_attend,
+                                        swa_write)
 from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        attention_forward, ffn_forward,
                                        init_attention, init_ffn,
@@ -363,11 +364,9 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
         B, H, hd = out.shape
         mix = out.reshape(B, 1, H * hd).to(q.dtype)
     elif isinstance(cj, SWACache):
-        from repro_torch.kernels import ops
         cj = swa_write(cj, k, v, pos_arr)
-        out = ops.swa_decode_attention(q[:, 0].contiguous(), cj.k, cj.v,
-                                       cj.pos, swa_cur,
-                                       window=window or cfg.sliding_window)
+        out = swa_attend(q[:, 0].contiguous(), cj, swa_cur,
+                         window or cfg.sliding_window)
         B, H, hd = out.shape
         mix = out.reshape(B, 1, H * hd)
     elif isinstance(cj, QuantKVCache):

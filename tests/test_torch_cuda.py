@@ -432,37 +432,59 @@ def test_paged_kernel_rejects_what_it_does_not_take(dev):
                                     big, big, table, cur)
 
 
-@pytest.mark.parametrize("mode", ["resident", "offload", "resident_bf16"])
+@pytest.mark.parametrize("mode", ["resident", "offload", "resident_bf16",
+                                  "offload_bf16", "offload_bf16_int8"])
 def test_paged_server_runs_the_kernel_on_card(dev, mode):
     """A tiny paged server (a shared prompt included) gives the contiguous
     server's tokens, every attention sublayer of every decode step through
-    the paged kernel. bf16 (params, compute and arenas): the paged server
-    on the card gives the same server's tokens on the CPU (plain versions,
-    the same weights), a first difference accepted only where the CPU's
-    top-2 logit margin there is below the bf16 tolerance, 2e-2 (a near tie
-    that bf16 rounding in another order may flip)."""
+    the paged kernel (and every FFN through the fused kernel offload).
+    bf16 (params, compute and arenas; bf16 bundles offload; an int8 arena
+    with `kv_quant`): the paged server on the card gives the same server's
+    tokens on the CPU (plain versions, the same weights and, offload, the
+    card runtime's placements), a first difference accepted only where the
+    CPU's top-2 logit margin there is below the bf16 tolerance, 2e-2 (a
+    near tie that bf16 rounding in another order may flip): a resident
+    run's margin from a B=1 decode, an offload run's from the CPU run's
+    own logits (offload makes the residual stream float32 after the first
+    FFN, so a resident decode computes another function)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import Request, build_offload_runtime
+    from repro_torch.serving.engine import (OffloadedFFNRuntime, Request,
+                                            build_offload_runtime)
     from repro_torch.serving.server import InferenceServer
-    bf16 = mode == "resident_bf16"
+    from repro_torch.store.packer import extract_dense_ffn_bundles
+    bf16 = mode.endswith(("bf16", "int8"))
+    offload = mode.startswith("offload")
     dtypes = (dict(param_dtype="bfloat16", compute_dtype="bfloat16") if bf16
               else {})
     cfg = get_config("opt-350m", reduced=True, d_model=64, d_ff=256,
-                     n_layers=2, vocab_size=128, **dtypes)
+                     n_layers=2, vocab_size=128,
+                     kv_quant=mode.endswith("int8"), **dtypes)
     model = build_model(cfg, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     kw = {}
-    if mode == "offload":
-        kw = dict(mode="offload", offload=build_offload_runtime(
-            model, params, calib_batch=(4, 32), device=dev))
+    if offload:
+        runtime = build_offload_runtime(model, params, calib_batch=(4, 32),
+                                        device=dev)
+        kw = dict(mode="offload", offload=runtime)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 128, T).astype(np.int32) for T in (5, 9, 7)]
     prompts.append(prompts[1].copy())
 
-    def serve(m=model, p=params, device=dev, **paging):
+    def serve(m=model, p=params, device=dev, rows=None, kw=kw, **paging):
         server = InferenceServer(m, p, max_slots=3, max_len=32,
                                  device=device, **kw, **paging)
+        if rows is not None:       # each decode step's logits, by uid
+            decode = server._decode_offload
+
+            def recorded(active):
+                out = decode(active)
+                for slot, h in enumerate(server._slot_handle):
+                    if h is not None:
+                        rows.setdefault(h.uid, []).append(
+                            np.asarray(out[0][slot], np.float32))
+                return out
+            server._decode_offload = recorded
         handles = [server.submit(Request(uid=i, prompt=q, max_new_tokens=6))
                    for i, q in enumerate(prompts)]
         server.drain()
@@ -471,9 +493,13 @@ def test_paged_server_runs_the_kernel_on_card(dev, mode):
     ops.reset_counts()
     handles, server = serve(page_size=4, num_pages=24)
     paged = ops.counts["paged_decode"]
-    assert paged.plain_calls == 0
+    ffn = ops.counts["sparse_ffn_segments_fused"]
+    assert paged.plain_calls == ffn.plain_calls == 0
     assert paged.launches == server.stats.decode_steps * cfg.n_layers > 0
+    assert ffn.launches == (paged.launches if offload else 0)
     assert server.stats.prefix_hits >= 1
+    if mode.endswith("int8"):
+        assert server._pool.cache_groups[0]["sub_0"].k.dtype == torch.int8
     if not bf16:
         contiguous, _ = serve()
         for h, c in zip(handles, contiguous):
@@ -482,15 +508,28 @@ def test_paged_server_runs_the_kernel_on_card(dev, mode):
         return
     cpu_model = build_model(cfg, device="cpu")
     cpu_params = _to(params, "cpu")
-    cpu, _ = serve(cpu_model, cpu_params, "cpu", page_size=4, num_pages=24)
+    cpu_kw, rows = {}, None
+    if offload:
+        cpu_kw = dict(mode="offload", offload=OffloadedFFNRuntime(
+            cfg, extract_dense_ffn_bundles(cfg, cpu_params),
+            [e.placement for e in runtime.engines], device="cpu"))
+        rows = {}
+    cpu, _ = serve(cpu_model, cpu_params, "cpu", rows, cpu_kw, page_size=4,
+                   num_pages=24)
     for h, c, prompt in zip(handles, cpu, prompts):
         assert h.result.finish_reason == "length"
         t = next((i for i, (a, b) in enumerate(zip(h.result.tokens,
                                                      c.result.tokens))
                   if a != b), None)
-        if t is not None:
-            assert _top2_margin(cpu_model, cpu_params, prompt,
-                                c.result.tokens, t) < 2e-2, (h.uid, t)
+        if t is None:
+            continue
+        if rows is None or t == 0:     # resident, or the dense prefill
+            margin = _top2_margin(cpu_model, cpu_params, prompt,
+                                  c.result.tokens, t)
+        else:
+            top2 = np.sort(rows[c.uid][t - 1])[-2:]
+            margin = float(top2[1] - top2[0])
+        assert margin < 2e-2, (h.uid, t, margin)
 
 
 # -- co-activation counts --------------------------------------------------------
@@ -1371,6 +1410,57 @@ def test_train_step_on_card(dev, tmp_path):
         for a, b in zip(tree_leaves(state), tree_leaves(restored)):
             assert b.device.type == torch.device(device).type
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+TRAIN_FAMILIES = ["opt-350m", "granite-moe-1b-a400m", "xlstm-125m",
+                  "jamba-1.5-large-398b", "seamless-m4t-medium",
+                  "internvl2-26b"]
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES,
+                         ids=["dense", "moe", "ssm", "hybrid", "encdec",
+                              "vlm"])
+def test_one_train_step_card_vs_cpu(dev, arch, dtype):
+    """One `make_train_step` step of each family (reduced widths, vocab
+    128, 2 x 16 tokens and seeded features) on the card against the CPU
+    from the same params, by `chip_smoke.one_step_check`'s rule: float32
+    as phase 18 holds opt-350m (loss 1e-4, grad norm 1e-3, each leaf's
+    clipped gradient 1e-2 in relative L2, the update 1e-6 from AdamW on
+    the CPU over the card's moments); bf16 (params, compute and moments,
+    as the dry run) by its bf16 rule (loss 1e-3, grad norm 1e-2, each
+    leaf 5e-2 from the CPU's and no farther from the float32 gradient
+    than 1.5 x the CPU's distance plus one bf16 rounding, the update
+    within one bf16 step and 1e-6 of AdamW on the card's moments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import seeded_model
+    from repro_torch.training.optimizer import AdamWConfig
+    smoke = _chip_smoke()
+    dt = {} if dtype == "float32" else dict(param_dtype=dtype,
+                                            compute_dtype=dtype)
+    cfg = get_config(arch, reduced=True, vocab_size=128, **dt)
+    model, params = seeded_model(cfg, 0, dev)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, 128, (2, 16)).astype(np.int32))}
+    feats = (2, cfg.n_prefix_tokens, cfg.d_frontend)
+    if cfg.family in ("vlm", "audio"):
+        batch["patch_feats" if cfg.family == "vlm" else "frames"] = \
+            torch.from_numpy(rng.standard_normal(feats).astype(np.float32))
+    opt = AdamWConfig(lr_peak=smoke.TRAIN_LR, warmup_steps=2,
+                      total_steps=smoke.TRAIN_STEPS, moment_dtype=dtype)
+    row = smoke.one_step_check(dev, model, params, opt, seed=0, batch=batch)
+    print(row)
 
 
 # -- sharded training across cards -------------------------------------------------

@@ -227,8 +227,154 @@ def test_run_case_traces_flash_past_the_threshold(monkeypatch, triangular):
                         mesh=sh.abstract_mesh((2, 4), ("data", "model")),
                         config_overrides=overrides)
     # each rank attends its own 2 rows and all 4 heads (2 KV heads do not
-    # divide the model axis of 4)
-    assert calls == [(B // 2, T, 4, 16)] * 2
+    # divide the model axis of 4); two layers, in the uncounted warm-up
+    # run and in the counted one (`trace_case`)
+    assert calls == [(B // 2, T, 4, 16)] * 4
     plain_scores = (B // 2) * 4 * T * T * 4
     assert 0 < r["memory_analysis"]["peak_bytes"] < plain_scores
     assert r["cost_analysis"]["flops"] > 0
+
+
+# -- the cases repaired for torch 2.11 (the card machine's; ROADMAP §3) -------
+# On 2.11 every train case failed in `F.pad` of a DTensor (the CE's padded
+# last chunk), the sliding-window decode of long_500k in `index_put_` (the
+# ring write: no DTensor strategy) and in the plain swa op's [B, KV, G, hd]
+# view of a head-sharded q, and full-width xlstm long_500k / jamba
+# prefill_32k in adding a sharded bias to a partial sum. The tests below
+# run those cases here on a fake (2, 4) world at the reduced widths of the
+# flash test above and check that no such op reaches DTensor.
+
+REDUCED = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+               vocab_size=128, flash_q_chunk=512, flash_k_chunk=512)
+
+
+def _traced_dtensor_ops(monkeypatch, arch, shape_name, T=None, B=4,
+                        **run_kw):
+    """run_case on a fake (2, 4) world (train and prefill cut to T x B),
+    and the names of the ops dispatched on DTensors."""
+    from repro_torch.configs import InputShape
+    from torch.distributed.tensor import DTensor
+    base = dryrun.INPUT_SHAPES[shape_name]
+    monkeypatch.setitem(dryrun.INPUT_SHAPES, shape_name, InputShape(
+        shape_name, T or base.seq_len, min(B, base.global_batch), base.kind))
+    seen = set()
+    real = dryrun.DeviceCost.__torch_dispatch__
+
+    def recording(self, func, types, args=(), kwargs=None):
+        if any(t is DTensor for t in types):
+            seen.add(str(func))
+        return real(self, func, types, args, kwargs)
+    monkeypatch.setattr(dryrun.DeviceCost, "__torch_dispatch__", recording)
+    r = dryrun.run_case(arch, shape_name, save_dir="",
+                        mesh=sh.abstract_mesh((2, 4), ("data", "model")),
+                        config_overrides=REDUCED, **run_kw)
+    return r, seen
+
+
+def test_train_case_pads_no_dtensor(monkeypatch):
+    """A train step of 600 positions (599 targets: a CE chunk of 512 and
+    a short one) traces with no `F.pad` on a DTensor: the short last chunk
+    is taken as it is, where the reference pads it with mask-0 positions
+    (the same sum: tests/test_torch_train.py's two-chunk loss)."""
+    r, seen = _traced_dtensor_ops(monkeypatch, "granite-3-2b", "train_4k",
+                                  T=600, microbatches=2)
+    assert r["cost_analysis"]["flops"] > 0 and r["microbatches"] == 2
+    assert "aten.mm.default" in seen
+    assert not {op for op in seen if "pad" in op}, seen
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "internvl2-26b",
+                                  "seamless-m4t-medium"])
+def test_long_decode_writes_and_attends_rings_per_shard(monkeypatch, arch):
+    """long_500k decode (one row, sliding-window rings; dense, VLM and
+    encoder-decoder) traces: the ring write reaches no DTensor as an
+    indexed write, and the swa op runs on each rank's rows and KV heads
+    (its [B, KV, G, hd] view of 4 heads over a model axis of 4 would be
+    uneven: it failed here before)."""
+    r, seen = _traced_dtensor_ops(monkeypatch, arch, "long_500k")
+    assert r["swa"] and r["position"] == 524_287
+    assert r["collective_bytes"]["total"] > 0
+    assert not {op for op in seen if "index_put" in op}, seen
+
+
+@pytest.fixture
+def fake_pg():
+    """A fake 8-rank process group (rank 0) and its (2, 4) CPU mesh, with
+    real tensors: a rank's own local ops compute, collectives move
+    nothing."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        yield sh.make_mesh((2, 4), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_write_rows_writes_each_ranks_shard(fake_pg):
+    """`dtensor.write_rows_` into a ring sharded on its rows and on its
+    head dim writes rank 0's shard as the plain indexed write does, from a
+    replicated source and columns; a ring sharded on the written dim is
+    refused."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed.dtensor import write_rows_
+    gen = torch.Generator().manual_seed(0)
+    ring = torch.randn((4, 6, 8, 2), generator=gen)
+    src = torch.randn((4, 2, 8, 2), generator=gen)
+    cols = torch.tensor([[0, 5], [1, 2], [3, 4], [5, 0]])
+    want = write_rows_(ring.clone(), cols, src)
+    placed = distribute_tensor(ring.clone(), fake_pg, [Shard(0), Shard(2)])
+    out = write_rows_(placed, cols, src)
+    assert out is placed and list(out.placements) == [Shard(0), Shard(2)]
+    # rank 0 holds rows 0..1 and heads 0..1
+    assert torch.equal(out.to_local(), want[:2, :, :2])
+    assert not torch.equal(want[:2, :, :2], ring[:2, :, :2])
+    with pytest.raises(ValueError, match="cannot write rows"):
+        write_rows_(distribute_tensor(ring.clone(), fake_pg,
+                                      [Replicate(), Shard(1)]), cols, src)
+
+
+def test_reduced_reduces_partials_and_keeps_shards(fake_pg):
+    """`dtensor.reduced`: a partial sum becomes replicated on its mesh dim
+    (one all-reduce), a shard stays; a plain tensor and a DTensor with no
+    partial come back as they are. `apply_norm` of a partial residual
+    reduces it first."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from repro_torch.distributed.dtensor import reduced
+    from repro_torch.models.layers import apply_norm, init_norm
+    t = DTensor.from_local(torch.ones((2, 4)), fake_pg, [Shard(0), Partial()])
+    cost = dryrun.DeviceCost()
+    with cost:
+        out = reduced(t)
+    assert [str(p) for p in out.placements] == ["S(0)", "R"]
+    assert cost.summary()["all-reduce"] == 2 * 4 * 4
+    kept = DTensor.from_local(torch.ones((2, 4)), fake_pg,
+                              [Shard(0), Shard(1)])
+    assert reduced(kept) is kept
+    plain = torch.ones(3)
+    assert reduced(plain) is plain
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = get_config("xlstm-125m", reduced=True, d_model=4)
+    with implicit_replication():     # the plain scale and bias replicated
+        y = apply_norm(init_norm(cfg, "cpu", 4), t, cfg)
+    assert not any(p.is_partial() for p in y.placements)
+
+
+def test_peak_and_flops_leave_out_dtensor_shape_propagation(monkeypatch):
+    """DTensor runs an op on fake tensors of the global shapes the first
+    time it meets the op's input specs, to learn its output's shape; the
+    counters leave those runs out (`trace_case` runs the step once
+    uncounted first). So a case traced in a fresh DTensor cache (a shape
+    no other test uses) counts what the same case counts once the cache is
+    warm. Uncorrected, a granite-3-2b prefill_32k on (16, 16) counted two
+    global [32, 32768, 8192] FFN activations: 49.84 GiB a device."""
+    from repro_torch.configs import InputShape
+    monkeypatch.setitem(dryrun.INPUT_SHAPES, "prefill_32k",
+                        InputShape("prefill_32k", 328, 8, "prefill"))
+    overrides = dict(REDUCED, n_layers=1, d_ff=1024)
+    runs = [dryrun.run_case("granite-3-2b", "prefill_32k", save_dir="",
+                            mesh=sh.abstract_mesh((2, 4), ("data", "model")),
+                            config_overrides=overrides) for _ in range(2)]
+    first, second = runs
+    assert first["memory_analysis"] == second["memory_analysis"]
+    assert first["cost_analysis"] == second["cost_analysis"]

@@ -6,7 +6,8 @@ side's gradients changed in one leaf: zeroed, sign-flipped or permuted.
 Each such step must fail the check, although the grad-norm rule alone
 passes all three (a zeroed final-norm gradient moves the global norm by
 less than its 1e-3; a flip or a permutation not at all). The unchanged
-step passes.
+step passes. The same in bf16 (params, compute and moments), where the
+check holds each leaf by its distance to the float32 gradient.
 """
 import importlib.util
 from pathlib import Path
@@ -52,9 +53,11 @@ def _permute_embedding(grads):
                                     _permute_embedding],
                          ids=["unchanged", "zeroed", "sign-flipped",
                               "permuted"])
-def test_one_step_check_holds_each_gradient_leaf(change, monkeypatch):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_step_check_holds_each_gradient_leaf(change, dtype, monkeypatch):
     smoke = _chip_smoke()
-    cfg = get_config("opt-350m", reduced=True)
+    cfg = get_config("opt-350m", reduced=True, param_dtype=dtype,
+                     compute_dtype=dtype)
     model = build_model(cfg, device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     real = train_mod.grads_of
@@ -66,16 +69,23 @@ def test_one_step_check_holds_each_gradient_leaf(change, monkeypatch):
         return loss, aux, grads
     monkeypatch.setattr(train_mod, "grads_of", grads_of)
     opt_cfg = AdamWConfig(lr_peak=smoke.TRAIN_LR, warmup_steps=2,
-                          total_steps=smoke.TRAIN_STEPS)
+                          total_steps=smoke.TRAIN_STEPS, moment_dtype=dtype)
+    bf16 = dtype == "bfloat16"
     if change is None:
         row = smoke.one_step_check(torch.device("cpu"), model, params,
                                    opt_cfg, seed=0)
-        assert row["grad_max_leaf_l2_rel"] <= smoke.TRAIN_GRAD_L2_TOL
+        if bf16:
+            assert row["f32_rule_excess"] <= 0
+        else:
+            assert row["grad_max_leaf_l2_rel"] <= smoke.TRAIN_GRAD_L2_TOL
         assert row["params_vs_cpu_adamw_on_card_grads"] <= smoke.TRAIN_PARAM_TOL
         return
     with pytest.raises(AssertionError) as err:
         smoke.one_step_check(torch.device("cpu"), model, params, opt_cfg,
                              seed=0)
     row = err.value.args[0]
-    assert row["grad_max_leaf_l2_rel"] > smoke.TRAIN_GRAD_L2_TOL
+    if bf16:
+        assert row["f32_rule_excess"] > 0
+    else:
+        assert row["grad_max_leaf_l2_rel"] > smoke.TRAIN_GRAD_L2_TOL
     assert abs(row["grad_norm_card"] / row["grad_norm_cpu"] - 1) < 1e-3

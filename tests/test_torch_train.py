@@ -5,8 +5,10 @@ On the CPU, from the reference's params converted into the port and the
 same seeded numpy batches:
 
 - `Model.loss_fn` for a dense (opt-350m; a 520-token row, so two CE chunks
-  of 512, one padded), MoE (granite-moe, with its aux loss), SSM (xlstm),
-  encoder-decoder (seamless) and VLM (internvl2) model, with a random
+  of 512, the second short where the reference pads it), MoE
+  (granite-moe, with its aux loss), SSM (xlstm), hybrid (jamba: Mamba,
+  attention and MoE layers), encoder-decoder (seamless) and VLM
+  (internvl2) model, with a random
   `loss_mask`, equals the reference's to 1e-5 relative;
 - the gradient of every leaf equals `jax.grad`'s to 1e-4 of that leaf's
   largest magnitude. A leaf whose largest gradient is below 1e-3 of the
@@ -18,6 +20,10 @@ same seeded numpy batches:
   float32 and bf16 moments), equal the reference's;
 - `make_train_step` with 1 and 2 microbatches over 3 steps equals the
   reference's (losses 1e-5 relative, grad norms 1e-4, params 1e-4);
+  one step in bf16 (params, compute and moments, the dry run's dtypes)
+  of a dense, MoE and hybrid model against the reference's run op by op,
+  each side also measured against the float32 gradient of the same bf16
+  values (`test_bf16_train_step_matches_reference`);
 - `synthetic_batches` and `byte_batches` give the reference's tokens;
 - the counterparts of tests/test_data_and_train.py;
 - checkpoints: each package loads the other's files into its own
@@ -62,6 +68,7 @@ FAMILIES = [
                  id="dense-two-chunks"),
     pytest.param("granite-moe-1b-a400m", dict(d_model=64), 16, id="moe"),
     pytest.param("xlstm-125m", dict(d_model=64), 16, id="ssm"),
+    pytest.param("jamba-1.5-large-398b", dict(d_model=64), 16, id="hybrid"),
     pytest.param("seamless-m4t-medium", dict(d_model=64, d_ff=128), 12,
                  id="encdec"),
     pytest.param("internvl2-26b", dict(d_model=64, d_ff=128), 12, id="vlm"),
@@ -252,6 +259,93 @@ def test_train_step_matches_reference(microbatches):
                             jax.tree_util.tree_leaves(
                                 params_to_numpy(state.params))):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4, err_msg=path)
+
+
+# bf16 train step (the dry run's dtypes): the reference runs op by op under
+# `jax.disable_jit()`; its float32 gradient at the same bf16 values is the
+# yardstick of how far bf16 rounding alone moves a gradient
+BF16_STEP = [
+    pytest.param("opt-350m", dict(d_model=64, d_ff=256), 16, id="dense"),
+    pytest.param("granite-moe-1b-a400m", dict(d_model=64), 16, id="moe"),
+    # 8 positions: the reference's Mamba scan op by op takes 40 s here
+    pytest.param("jamba-1.5-large-398b", dict(d_model=64), 8, id="hybrid"),
+]
+BF16_ULP = 2.0 ** -8          # one bf16 rounding, relative
+BF16_LOSS_RTOL = 1e-3         # float32 CE over bf16 logits (seen: 4.5e-5)
+BF16_GNORM_RTOL = 1e-2        # a norm over bf16 gradients (seen: 1.8e-3)
+BF16_GRAD_L2 = 5e-2           # a leaf's gradient vs the reference's (1.7e-2)
+BF16_VS_F32 = 1.5             # port's distance to float32 over the reference's
+
+
+def _bf16_values(a):
+    a = np.asarray(a)
+    if a.dtype.kind == "V":       # the port's bf16 leaves as void-2 bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).float().numpy()
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("arch,kw,S", BF16_STEP)
+def test_bf16_train_step_matches_reference(arch, kw, S):
+    """One `make_train_step` step in bf16 (params, compute and AdamW
+    moments), as the dry run traces it, against the reference's on the
+    same bf16 params and batch. Both round differently in bf16, so each is
+    also measured against the float32 gradient of the same bf16 values
+    (the reference's, jitted in float32):
+      * loss within BF16_LOSS_RTOL, grad norm within BF16_GNORM_RTOL;
+      * each first moment, (1 - b1) x the clipped gradient rounded to
+        bf16, within BF16_GRAD_L2 of the reference's in relative L2, and
+        no farther from the float32 gradient than BF16_VS_F32 x the
+        reference's distance plus one bf16 rounding (BF16_ULP);
+      * each param within 2 lr plus one bf16 rounding of the reference's:
+        AdamW's first update moves an element by lr x g / (|g| + eps),
+        +-lr, so a gradient whose sign differs moves it 2 lr apart."""
+    dt = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jmodel, jparams, model, params = _pair(arch, seed=2, **kw, **dt)
+    opt = dict(lr_peak=1e-3, warmup_steps=1, total_steps=10,
+               moment_dtype="bfloat16")
+    jcfg, cfg = jopt.AdamWConfig(**opt), AdamWConfig(**opt)
+    batch = _batch(model.cfg, 2, S, seed=20)
+    with jax.disable_jit():
+        jstate, jm = jtrain.make_train_step(jmodel, jcfg)(
+            jtrain.TrainState(jparams, jopt.init_adamw(jparams, jcfg)),
+            _j(batch))
+    state, m = make_train_step(model, cfg)(
+        TrainState(params, init_adamw(params, cfg)), _t(batch))
+    assert state.params["embed"]["embedding"].dtype == torch.bfloat16
+    assert state.opt.mu["embed"]["embedding"].dtype == torch.bfloat16
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=BF16_LOSS_RTOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=BF16_GNORM_RTOL)
+    lr = float(jm["lr"])
+    assert float(m["lr"]) == lr
+    # the float32 gradient of the same bf16 values, clipped as the step's
+    j32 = jbuild_model(jget_config(arch, reduced=True, vocab_size=VOCAB, **kw))
+    g32 = jax.jit(jax.grad(lambda p, b: j32.loss_fn(p, b)[0]))(
+        jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jparams),
+        _j(batch))
+    clip = min(1.0, cfg.grad_clip_norm / (float(jopt.global_norm(g32)) + 1e-9))
+    for (path, a), b, (_, t) in zip(
+            _flat_ref(jstate.opt.mu),
+            jax.tree_util.tree_leaves(params_to_numpy(state.opt.mu)),
+            _flat_ref(g32)):
+        a, b = _bf16_values(a), _bf16_values(b)
+        t = (1 - cfg.b1) * clip * t.astype(np.float32)
+        norm = max(float(np.linalg.norm(t)), 1e-30)
+        port_ref = float(np.linalg.norm(b - a)) / norm
+        port_f32 = float(np.linalg.norm(b - t)) / norm
+        ref_f32 = float(np.linalg.norm(a - t)) / norm
+        assert port_ref <= BF16_GRAD_L2, (path, port_ref)
+        assert port_f32 <= BF16_VS_F32 * ref_f32 + BF16_ULP, (
+            path, port_f32, ref_f32)
+    for (path, a), b in zip(_flat_ref(jstate.params),
+                            jax.tree_util.tree_leaves(
+                                params_to_numpy(state.params))):
+        a, b = _bf16_values(a), _bf16_values(b)
+        np.testing.assert_array_less(np.abs(b - a),
+                                     2 * lr + BF16_ULP * np.abs(a) + 1e-30,
+                                     err_msg=path)
 
 
 def test_synthetic_batches_match_reference():
