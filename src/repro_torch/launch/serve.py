@@ -131,9 +131,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record a Chrome trace-event / Perfetto timeline of "
-                         "the whole run (server steps, engine reads, prefetch "
-                         "worker, per-request lanes) and write it to PATH; "
-                         "open it at https://ui.perfetto.dev")
+                         "the whole run and write it to PATH; open it at "
+                         "https://ui.perfetto.dev. The serving thread's lane "
+                         "holds step > admit_gate, prefill > init_cache, "
+                         "pool_admit > evict, write_prompt, "
+                         "register_prefixes, grow_tables > evict, "
+                         "decode_step > step_inputs, a mixer span a layer, "
+                         "logits_sync and, in offload mode, per layer masks, "
+                         "probe, read > "
+                         "pread (one a store read call, its extents and "
+                         "bytes), admit, stage, upload, ffn; then emit. "
+                         "Also: the prefetch worker's prefetch spans, one "
+                         "'req <uid>' lane a request (prefill, a decode "
+                         "span a token), the io_model_ms / io_measured_ms "
+                         "counters, and defer / retire / cow_copy / "
+                         "prefix_evict / read_retry instants")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; 'cpu' "
                          "runs the kernels' plain versions)")

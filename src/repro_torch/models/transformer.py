@@ -47,6 +47,7 @@ from repro_torch.models.layers import (_project_qkv, apply_norm,
                                        maybe_checkpoint, promoted_matmul,
                                        rope,
                                        sparse_ffn_decode)
+from repro_torch.obs import get_tracer
 
 Params = Dict[str, Any]
 
@@ -409,7 +410,9 @@ def stack_decode_step_layerwise(
     the same order `stack_forward(capture_activations=True)` stacks
     `ffn_pre_act`, so calibration traces and serving agree on layer ids.
     `page_tables` routes paged arenas (from `init_paged_stack_cache`); the
-    one page table serves every layer. Caches are updated in place."""
+    one page table serves every layer. Caches are updated in place. Each
+    layer's mixer (its attention or SSM step and the residual add) is one
+    `mixer` span of the tracer."""
     B = x.shape[0]
     pos_arr = _decode_positions(position, B, x.device)
     paged = _paged_step(position, page_tables, cache_groups)
@@ -421,13 +424,16 @@ def stack_decode_step_layerwise(
     dense_idx = 0
     P = stack_period(cfg)
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
-    for group_params, group_cache in zip(param_groups, cache_groups):
+    tr = get_tracer()
+    for g, (group_params, group_cache) in enumerate(zip(param_groups,
+                                                       cache_groups)):
         for j in range(P):
             sp = group_params[f"sub_{j}"]
-            mix, group_cache[f"sub_{j}"] = _mixer_decode(
-                sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
-                kinds[j], paged, window, swa_cur)
-            h = h + mix
+            with tr.span("mixer", layer=g * P + j):
+                mix, group_cache[f"sub_{j}"] = _mixer_decode(
+                    sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
+                    kinds[j], paged, window, swa_cur)
+                h = h + mix
             if ffns[j] == "moe":
                 h = h + moe_lib.moe_forward(
                     sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)[0]

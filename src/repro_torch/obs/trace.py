@@ -4,7 +4,9 @@ Design goals:
 
 - **Thread-safe without hot-path locks.** Each thread records into its own
   fixed-capacity ring buffer; the only lock guards ring *creation* and
-  export-time iteration.
+  export-time iteration. A thread's lane (``tid``) is its
+  ``threading.get_ident()``; a thread that reuses a finished thread's ident
+  gets a synthetic lane, so no ring is ever replaced.
 - **Zero work when disabled.** The module-level tracer defaults to a shared
   :class:`NullTracer` whose ``span``/``instant``/``counter`` methods do
   nothing and return a shared no-op context manager, so call sites never
@@ -46,6 +48,9 @@ __all__ = [
 # with real thread idents in practice (and collisions would only merge lanes
 # in the viewer, never corrupt data).
 _TRACK_TID_BASE = 1_000_000
+# Synthetic tids for threads that reuse a finished thread's ident: the first
+# thread with an ident keeps it as its tid, later ones get a lane from here.
+_REUSED_TID_BASE = 2_000_000
 
 # Event tuple layout: (ts_us, dur_us_or_None, ph, name, tid, args_or_None)
 _Event = Tuple[float, Optional[float], str, str, int, Optional[dict]]
@@ -127,8 +132,9 @@ class Tracer:
         self._clock = clock
         self._t0 = clock()
         self._lock = threading.Lock()
-        # tid -> (ring, thread name at first event)
+        # tid -> (ring, thread name at first event); a ring is never replaced
         self._rings: Dict[int, Tuple[_Ring, str]] = {}
+        self._n_reused = 0
         self._tracks: Dict[str, int] = {}
         self._local = threading.local()
         self.pid = os.getpid()
@@ -147,6 +153,11 @@ class Tracer:
             tid = threading.get_ident()
             ring = _Ring(self.capacity_per_thread)
             with self._lock:
+                if tid in self._rings:
+                    # a finished thread's ident came back: keep its ring
+                    # and give this thread a lane of its own
+                    tid = _REUSED_TID_BASE + self._n_reused
+                    self._n_reused += 1
                 self._rings[tid] = (ring, threading.current_thread().name)
             self._local.ring = ring
             self._local.tid = tid

@@ -511,7 +511,8 @@ class OffloadedFFNRuntime:
         pending = eng.begin_step_masks(masks, fetch_payload=False)
         k = int(pending.union.size)
         if self.ffn_kernel != "segments":
-            self._stage_rows(eng.store, pending.union, 0, layer % 2)
+            with get_tracer().span("stage", layer=layer):
+                self._stage_rows(eng.store, pending.union, 0, layer % 2)
         return PrefetchedLayer(layer=layer, pending=pending, k_spec=k)
 
     def _handle_worker_death(self, exc: BaseException) -> None:
@@ -600,13 +601,14 @@ class OffloadedFFNRuntime:
                           else np.concatenate([pf.pending.union, extra]))
             else:
                 # stage the topped-up payload after the prefetched rows
-                staged = self._stage_rows(eng.store, extra, pf.k_spec,
-                                          layer % 2)
+                with get_tracer().span("stage", layer=layer):
+                    staged = self._stage_rows(eng.store, extra, pf.k_spec,
+                                              layer % 2)
         topup = time.perf_counter() - t1
         self.topup_total += int(extra.size)
         y = (self._ffn_segments(layer, h, served)
              if self.ffn_kernel == "segments" else
-             self._bundles_ffn(h, *staged))
+             self._bundles_ffn(layer, h, *staged))
         meas = StageMeasurement(io_host_seconds=pf.io_host_seconds,
                                 blocked_seconds=blocked, topup_seconds=topup)
         return y, res, meas
@@ -659,19 +661,23 @@ class OffloadedFFNRuntime:
             sbuf = sbuf[:padded]
         return buf[:padded], sbuf, k
 
-    def _bundles_ffn(self, h: torch.Tensor, rows: np.ndarray,
+    def _bundles_ffn(self, layer: int, h: torch.Tensor, rows: np.ndarray,
                      scales: Optional[np.ndarray], k: int) -> torch.Tensor:
         """The FFN from staged bundle rows: a synchronous upload from the
         pageable slot (it returns once the host rows have been read, so the
         worker may refill the slot two layers later), the first `k` rows
         valid, int8 rows dequantized on the device."""
+        tr = get_tracer()
         padded = rows.shape[0]
-        valid = torch.arange(padded, device=h.device) < k
-        bundles = bundle_tensor(rows).to(h.device)
-        sc = None if scales is None else torch.from_numpy(scales).to(h.device)
-        return sparse_ffn_from_bundles(
-            h, bundles, self.cfg.d_model, self.n_mats,
-            activation=self.cfg.activation, valid_mask=valid, scales=sc)
+        with tr.span("upload", layer=layer):
+            bundles = bundle_tensor(rows).to(h.device)
+            sc = (None if scales is None
+                  else torch.from_numpy(scales).to(h.device))
+        with tr.span("ffn", layer=layer):
+            valid = torch.arange(padded, device=h.device) < k
+            return sparse_ffn_from_bundles(
+                h, bundles, self.cfg.d_model, self.n_mats,
+                activation=self.cfg.activation, valid_mask=valid, scales=sc)
 
     def _ffn_compute(self, layer: int, h: torch.Tensor, ids: np.ndarray,
                      staging_slot=0) -> torch.Tensor:
@@ -681,9 +687,10 @@ class OffloadedFFNRuntime:
         holding a live neighbouring-layer prefetch."""
         if self.ffn_kernel == "segments":
             return self._ffn_segments(layer, h, ids)
-        rows, scales, k = self._stage_rows(self.engines[layer].store, ids, 0,
-                                           staging_slot)
-        return self._bundles_ffn(h, rows, scales, k)
+        with get_tracer().span("stage", layer=layer):
+            rows, scales, k = self._stage_rows(self.engines[layer].store, ids,
+                                               0, staging_slot)
+        return self._bundles_ffn(layer, h, rows, scales, k)
 
     # -- fused segment-gather kernel path (EngineConfig.ffn_kernel) ----------
     def _segment_weight_mats(self, layer: int) -> tuple:
@@ -726,24 +733,29 @@ class OffloadedFFNRuntime:
         eager launch has no shape to keep stable); ids and tiles are built in
         two reused host buffers and copied to the device (two small copies
         per layer), on the serving thread only."""
+        tr = get_tracer()
         eng = self.engines[layer]
         seg = self.engine_cfg.kernel_seg_size
         w_up, w_down, w_gate, base = self._segment_weights[layer]
-        phys = eng.placement.physical_of(np.asarray(ids, dtype=np.int64))
-        seg_of = phys // seg
-        seg_u = np.unique(seg_of)
-        S = int(seg_u.size)
-        id_buf = self._staging_buf("seg_ids", S, (), np.int32)
-        id_buf[:S] = seg_u
-        tiles = self._staging_buf(("seg_tiles", seg), S, (seg,), np.float32)
-        tiles[:S] = 0.0
-        rows = np.searchsorted(seg_u, seg_of)
-        tiles[rows, phys % seg] = base[phys]
-        seg_ids = torch.from_numpy(id_buf[:S]).to(h.device, copy=True)
-        scale_tiles = torch.from_numpy(tiles[:S]).to(h.device, copy=True)
-        return ops.sparse_ffn_segments_fused(
-            h, w_up, w_down, seg_ids, scale_tiles, w_gate,
-            seg_size=seg, activation=self.cfg.activation)
+        with tr.span("stage", layer=layer):
+            phys = eng.placement.physical_of(np.asarray(ids, dtype=np.int64))
+            seg_of = phys // seg
+            seg_u = np.unique(seg_of)
+            S = int(seg_u.size)
+            id_buf = self._staging_buf("seg_ids", S, (), np.int32)
+            id_buf[:S] = seg_u
+            tiles = self._staging_buf(("seg_tiles", seg), S, (seg,),
+                                      np.float32)
+            tiles[:S] = 0.0
+            rows = np.searchsorted(seg_u, seg_of)
+            tiles[rows, phys % seg] = base[phys]
+        with tr.span("upload", layer=layer):
+            seg_ids = torch.from_numpy(id_buf[:S]).to(h.device, copy=True)
+            scale_tiles = torch.from_numpy(tiles[:S]).to(h.device, copy=True)
+        with tr.span("ffn", layer=layer):
+            return ops.sparse_ffn_segments_fused(
+                h, w_up, w_down, seg_ids, scale_tiles, w_gate,
+                seg_size=seg, activation=self.cfg.activation)
 
     @property
     def n_layers(self) -> int:

@@ -167,34 +167,42 @@ class PagePool:
         return int(np.sum((self._refc > 0)
                           & (self._refc == self._registry_refc)))
 
-    def _evictable_entry_key(self) -> Optional[bytes]:
+    def _evictable_entry_key(self) -> Tuple[Optional[bytes], int]:
         """Oldest (FIFO) registry entry holding at least one registry-only
-        page. Evicting such entries makes progress toward a free page (each
-        eviction strictly reduces total registry refs, and a registry-only
-        page's refs are ALL registry refs); entries whose pages are all
-        pinned by live tables would free nothing and are skipped — evicting
-        them only throws away future sharing."""
+        page, and the number of entries walked to find it. Evicting such
+        entries makes progress toward a free page (each eviction strictly
+        reduces total registry refs, and a registry-only page's refs are ALL
+        registry refs); entries whose pages are all pinned by live tables
+        would free nothing and are skipped — evicting them only throws away
+        future sharing."""
+        scanned = 0
         for key, (_, pages) in self._registry.items():
+            scanned += 1
             if any(self._refc[p] == self._registry_refc[p] for p in pages):
-                return key
-        return None
+                return key, scanned
+        return None, scanned
 
     def _alloc_page(self) -> Optional[int]:
         """Pop a free page, evicting registry prefixes FIFO if the list is
         dry — skipping entries that cannot free a page, and stopping once no
         remaining entry can. None means genuinely out of memory (caller
         preempts/defers)."""
-        while not self._free:
-            key = self._evictable_entry_key()
-            if key is None:
-                break
-            self._evict_one_prefix(key)
         if not self._free:
-            return None
+            with get_tracer().span("evict") as sp:
+                entries = scanned = 0
+                while not self._free:
+                    key, walked = self._evictable_entry_key()
+                    scanned += walked
+                    if key is None:
+                        break
+                    self._evict_one_prefix(key)
+                    entries += 1
+                sp.set(entries=entries, scanned=scanned)
+            if not self._free:
+                return None
         p = self._free.pop()
         assert self._refc[p] == 0, f"page {p} on free list with refc>0"
         self._refc[p] = 1
-        get_tracer().instant("page_alloc", page=p, free=len(self._free))
         self.stats.pages_allocated += 1
         self.stats.peak_page_occupancy = max(self.stats.peak_page_occupancy,
                                              self.n_live)
@@ -380,18 +388,23 @@ class PagePool:
         T = table.prompt_len
         P = self.page_size
         n_pages = cdiv(T, P)
-        # first page this request owns (refcount 1): shared full pages and a
-        # still-shared partial page (exact-match fork) must not be written
-        first = 0
-        while first < n_pages and self._refc[table.pages[first]] > 1:
-            first += 1
-        for i in range(first, n_pages):
-            lo, hi = i * P, min(T, (i + 1) * P)
-            phys = table.pages[i]
-            for group, small_group in zip(self.cache_groups, small_cache):
-                for sub, arena in group.items():
-                    for leaf, s in zip(arena, small_group[sub]):
-                        leaf[phys, :hi - lo].copy_(s[0, lo:hi])
+        with get_tracer().span("write_prompt", uid=table.uid) as sp:
+            # first page this request owns (refcount 1): shared full pages
+            # and a still-shared partial page (exact-match fork) must not be
+            # written
+            first = 0
+            while first < n_pages and self._refc[table.pages[first]] > 1:
+                first += 1
+            copies = 0
+            for i in range(first, n_pages):
+                lo, hi = i * P, min(T, (i + 1) * P)
+                phys = table.pages[i]
+                for group, small_group in zip(self.cache_groups, small_cache):
+                    for sub, arena in group.items():
+                        for leaf, s in zip(arena, small_group[sub]):
+                            leaf[phys, :hi - lo].copy_(s[0, lo:hi])
+                            copies += 1
+            sp.set(pages=n_pages - first, copies=copies)
 
     def register_prefixes(self, prompt: np.ndarray, table: PageTable) -> None:
         """Register every page-aligned prefix of a just-written prompt in the
@@ -401,15 +414,20 @@ class PagePool:
         them."""
         prompt = np.asarray(prompt, dtype=np.int32)
         P = self.page_size
-        for L in range(P, len(prompt) + 1, P):
-            key = prompt[:L].tobytes()
-            if key in self._registry:
-                continue
-            pages = tuple(table.pages[:L // P])
-            for p in pages:
-                self._incref(p)
-                self._registry_refc[p] += 1
-            self._registry[key] = (L, pages)
+        with get_tracer().span("register_prefixes", uid=table.uid) as sp:
+            entries = increfs = 0
+            for L in range(P, len(prompt) + 1, P):
+                key = prompt[:L].tobytes()
+                if key in self._registry:
+                    continue
+                pages = tuple(table.pages[:L // P])
+                for p in pages:
+                    self._incref(p)
+                    self._registry_refc[p] += 1
+                self._registry[key] = (L, pages)
+                entries += 1
+                increfs += len(pages)
+            sp.set(entries=entries, increfs=increfs)
 
     # -- decode growth ---------------------------------------------------------
     def prepare_append(self, table: PageTable, position: int) -> bool:

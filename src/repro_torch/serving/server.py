@@ -531,7 +531,8 @@ class InferenceServer:
             # make every active row's next position writable BEFORE the
             # batched decode: page-boundary growth, CoW at divergence points,
             # and — pool dry even after prefix eviction — preemption
-            self._grow_page_tables()
+            with get_tracer().span("grow_tables"):
+                self._grow_page_tables()
         if any(h is not None for h in self._slot_handle):
             try:
                 emitted += self._decode_iteration()
@@ -597,13 +598,17 @@ class InferenceServer:
         best = min(self._queue,
                    key=lambda h: (-h.request.priority, _deadline_or_inf(h),
                                   h._order))
-        if self._page_defers(best):
-            get_tracer().instant("defer", uid=best.uid, gate="page")
-            self.stats.page_deferrals += 1
-            return None
-        if self._io_defers(best):
-            get_tracer().instant("defer", uid=best.uid, gate="io")
-            self.stats.io_deferrals += 1
+        tr = get_tracer()
+        with tr.span("admit_gate", uid=best.uid) as sp:
+            gate = ("page" if self._page_defers(best) else
+                    "io" if self._io_defers(best) else None)
+            sp.set(deferred=gate is not None)
+        if gate is not None:
+            tr.instant("defer", uid=best.uid, gate=gate)
+            if gate == "page":
+                self.stats.page_deferrals += 1
+            else:
+                self.stats.io_deferrals += 1
             return None
         self._queue.remove(best)
         return best
@@ -731,8 +736,12 @@ class InferenceServer:
         table = prompt_np = None
         if self._pool is not None:
             prompt_np = np.asarray(r.prompt, dtype=np.int32)
-            table, _ = self._pool.admit(prompt_np, r.max_new_tokens,
-                                        uid=r.uid)
+            with get_tracer().span("pool_admit", uid=r.uid) as sp:
+                allocated0 = self._pool.stats.pages_allocated
+                table, plan = self._pool.admit(prompt_np, r.max_new_tokens,
+                                               uid=r.uid)
+                sp.set(pages=self._pool.stats.pages_allocated - allocated0,
+                       shared=plan.n_shared)
             if table is None:
                 # the gate prices pinned shares, so this should not happen —
                 # but a dry pool defers rather than killing the request (the
@@ -753,7 +762,8 @@ class InferenceServer:
             tr = get_tracer()
             t0u = tr.now()
             t0 = time.perf_counter()
-            small = self.model.init_cache(1, self.max_len, swa=self.swa)
+            with tr.span("init_cache", uid=r.uid):
+                small = self.model.init_cache(1, self.max_len, swa=self.swa)
             with torch.inference_mode():
                 logits, small = self._prefill_fn(self.params, prompt, small)
             row = logits[0, -1].float().cpu().numpy()   # forces the sync
@@ -761,7 +771,9 @@ class InferenceServer:
             t1u = tr.now()
             tr.complete("prefill", t0u, t1u, uid=r.uid, prompt_len=T,
                         slot=slot)
-            tr.complete("prefill", t0u, t1u, track=f"req {r.uid}", uid=r.uid)
+            if tr.enabled:
+                tr.complete("prefill", t0u, t1u, track=f"req {r.uid}",
+                            uid=r.uid)
             self.stats.prefill_seconds += handle.prefill_seconds
             self.stats.admitted += 1
             if self._pool is not None:
@@ -777,9 +789,10 @@ class InferenceServer:
             tok = self._sample_row(handle, row)
             self._cur[slot] = tok
             self._emit(handle, tok)
-            t2u = tr.now()
-            tr.complete("decode", t1u, t2u, track=f"req {r.uid}", uid=r.uid,
-                        tok=tok, n_tokens=1, from_prefill=True)
+            if tr.enabled:
+                tr.complete("decode", t1u, tr.now(), track=f"req {r.uid}",
+                            uid=r.uid, tok=tok, n_tokens=1,
+                            from_prefill=True)
         except Exception as e:  # noqa: BLE001 — per-request isolation
             self._fail_request(handle, e)
             return 0
@@ -974,33 +987,43 @@ class InferenceServer:
         orphan = float(req_io[~active].sum())
         share = orphan / max(int(active.sum()), 1)
         emitted = 0
-        for slot in np.flatnonzero(active):
-            handle = self._slot_handle[slot]
-            handle.decode_seconds += token_wall
-            handle.overlapped_seconds += over
-            handle.io_seconds += float(req_io[slot]) + share
-            try:
-                tok = self._sample_row(handle, logits_rows[slot])
-                self._slot_pos[slot] += 1
-                self._cur[slot] = tok
-                self._emit(handle, tok)             # may free the slot
-                emitted += 1
-                tr.complete("decode", t0u, t1u, track=f"req {handle.uid}",
-                            uid=handle.uid, tok=tok,
-                            n_tokens=len(handle.tokens))
-            except Exception as e:  # noqa: BLE001
-                self._fail_request(handle, e)
+        with tr.span("emit", batch=int(active.sum())):
+            for slot in np.flatnonzero(active):
+                handle = self._slot_handle[slot]
+                handle.decode_seconds += token_wall
+                handle.overlapped_seconds += over
+                handle.io_seconds += float(req_io[slot]) + share
+                try:
+                    tok = self._sample_row(handle, logits_rows[slot])
+                    self._slot_pos[slot] += 1
+                    self._cur[slot] = tok
+                    self._emit(handle, tok)             # may free the slot
+                    emitted += 1
+                    if tr.enabled:
+                        tr.complete("decode", t0u, t1u,
+                                    track=f"req {handle.uid}",
+                                    uid=handle.uid, tok=tok,
+                                    n_tokens=len(handle.tokens))
+                except Exception as e:  # noqa: BLE001
+                    self._fail_request(handle, e)
         return emitted
 
     def _step_inputs(self):
         """The decode step's device inputs, sent once per step: last tokens
         [B, 1], positions [B], and (paged) the int32 page tables
         [B, max_pages] that every layer shares (None when not paged)."""
-        cur = torch.as_tensor(self._cur[:, None], device=self.device)
-        pos = torch.as_tensor(self._slot_pos.copy(), device=self.device)
-        pt = (None if self._pool is None else
-              torch.as_tensor(self._page_tables_np(), device=self.device))
+        with get_tracer().span("step_inputs"):
+            cur = torch.as_tensor(self._cur[:, None], device=self.device)
+            pos = torch.as_tensor(self._slot_pos.copy(), device=self.device)
+            pt = (None if self._pool is None else
+                  torch.as_tensor(self._page_tables_np(), device=self.device))
         return cur, pos, pt
+
+    @staticmethod
+    def _logits_rows(logits: torch.Tensor) -> np.ndarray:
+        """The last position's logits on the host: the end-of-token sync."""
+        with get_tracer().span("logits_sync"):
+            return logits[:, 0].float().cpu().numpy()
 
     def _decode_resident(self):
         t0 = time.perf_counter()
@@ -1011,7 +1034,7 @@ class InferenceServer:
         else:
             logits, self._cache = self._decode_fn(self.params, cur, pos,
                                                   self._cache)
-        rows = logits[:, 0].float().cpu().numpy()        # the per-token sync
+        rows = self._logits_rows(logits)
         wall = time.perf_counter() - t0
         return rows, wall, np.zeros(self.max_slots), 0.0
 
@@ -1024,18 +1047,20 @@ class InferenceServer:
         request incurs no further I/O. `with_hidden=True` also returns `h2`
         on the host as float32 (the lookahead predictor's input), fetched
         in the same device-to-host read as the mask."""
-        if self._w_ups is not None:
-            dev_masks = promoted_matmul(h2, self._w_ups[dense_idx]) > 0
-        else:
-            dev_masks = predict_mask(self.offload.predictors[dense_idx], h2)
-        h_np = None
-        if with_hidden:
-            both = torch.cat([dev_masks.float(), h2.float()], dim=1)
-            both = both.cpu().numpy()
-            masks, h_np = both[:, :dev_masks.shape[1]] > 0, \
-                both[:, dev_masks.shape[1]:]
-        else:
-            masks = dev_masks.cpu().numpy()
+        with get_tracer().span("masks", layer=dense_idx):
+            if self._w_ups is not None:
+                dev_masks = promoted_matmul(h2, self._w_ups[dense_idx]) > 0
+            else:
+                dev_masks = predict_mask(self.offload.predictors[dense_idx],
+                                         h2)
+            h_np = None
+            if with_hidden:
+                both = torch.cat([dev_masks.float(), h2.float()], dim=1)
+                both = both.cpu().numpy()
+                masks, h_np = both[:, :dev_masks.shape[1]] > 0, \
+                    both[:, dev_masks.shape[1]:]
+            else:
+                masks = dev_masks.cpu().numpy()
         masks = masks & active[:, None]
         # feed the admission predictor: this layer's last true masks, plus an
         # EMA of per-column activation frequency over the active rows
@@ -1110,7 +1135,7 @@ class InferenceServer:
             self._cache = cache
         h = apply_norm(self.params["final_norm"], h, cfg)
         logits = unembed(self.params["embed"], h, cfg)
-        rows = logits[:, 0].float().cpu().numpy()   # the end-of-token sync
+        rows = self._logits_rows(logits)
         token_wall = time.perf_counter() - t0
         timing = self.scheduler.end_token(
             compute_seconds=token_wall,

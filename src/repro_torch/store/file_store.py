@@ -297,48 +297,45 @@ class FileNeuronStore(NeuronStore):
         read_index = next(self._read_counter)
         policy = self.retry
         attempt = 0
-        tracer = get_tracer()
-        with tracer.span("pread", start=int(start),
-                         length=int(length)) as sp:
-            while True:
-                try:
-                    buf = self._read_extent_attempt(start, length, read_index,
-                                                    attempt)
-                    if self._row_crcs is not None:
-                        self._verify_extent(buf, start, length, read_index)
-                    sp.set(attempts=attempt + 1)
-                    return np.frombuffer(
-                        buf, dtype=self._stored_dtype).reshape(
-                            length, self.bundle_width)
-                except (_ChecksumMismatch, OSError) as e:
-                    corrupt = isinstance(e, _ChecksumMismatch)
-                    if corrupt and stats is not None:
-                        stats.corrupt_extents += 1
+        while True:
+            try:
+                buf = self._read_extent_attempt(start, length, read_index,
+                                                attempt)
+                if self._row_crcs is not None:
+                    self._verify_extent(buf, start, length, read_index)
+                return np.frombuffer(buf, dtype=self._stored_dtype).reshape(
+                    length, self.bundle_width)
+            except (_ChecksumMismatch, OSError) as e:
+                corrupt = isinstance(e, _ChecksumMismatch)
+                if corrupt and stats is not None:
+                    stats.corrupt_extents += 1
+                if corrupt:
+                    get_tracer().instant("corrupt_extent", start=int(start),
+                                         attempt=attempt)
+                if not corrupt and not is_retryable(e):
+                    raise
+                if attempt >= policy.max_retries:
                     if corrupt:
-                        tracer.instant("corrupt_extent", start=int(start),
-                                       attempt=attempt)
-                    if not corrupt and not is_retryable(e):
-                        raise
-                    if attempt >= policy.max_retries:
-                        if corrupt:
-                            raise CorruptExtentError(
-                                f"{e} — still corrupt after "
-                                f"{policy.max_retries} re-reads")
-                        raise
-                    if stats is not None:
-                        stats.retries += 1
-                    tracer.instant("read_retry", start=int(start),
-                                   attempt=attempt)
-                    delay = policy.backoff(attempt)
-                    if delay > 0:
-                        time.sleep(delay)
-                    attempt += 1
+                        raise CorruptExtentError(
+                            f"{e} — still corrupt after "
+                            f"{policy.max_retries} re-reads")
+                    raise
+                if stats is not None:
+                    stats.retries += 1
+                get_tracer().instant("read_retry", start=int(start),
+                                     attempt=attempt)
+                delay = policy.backoff(attempt)
+                if delay > 0:
+                    time.sleep(delay)
+                attempt += 1
 
     def _serve_extents(self, extents: List[Extent], phys: np.ndarray,
                        fetch_payload: bool,
                        stats: IOStats) -> Optional[np.ndarray]:
         """One REAL file read per collapsed extent (measured accounting),
-        then gather the requested rows out of the extent blocks.
+        then gather the requested rows out of the extent blocks. The reads
+        of one call are one `pread` span, its args the extents and bytes
+        that `stats` records.
 
         The reads happen regardless of `fetch_payload`: the engine's
         probe/read path discards the payload (it re-gathers the full
@@ -346,12 +343,14 @@ class FileNeuronStore(NeuronStore):
         traffic — and the page-cache warmth `fetch_into` then enjoys — is
         exactly these extent reads.
         """
-        t0 = time.perf_counter()
-        blocks = [self._read_extent(start, length, stats)
-                  for start, length in extents]
-        stats.measured_seconds = time.perf_counter() - t0
-        stats.measured_ops = len(extents)
-        stats.measured_bytes = sum(b.nbytes for b in blocks)
+        with get_tracer().span("pread") as sp:
+            t0 = time.perf_counter()
+            blocks = [self._read_extent(start, length, stats)
+                      for start, length in extents]
+            stats.measured_seconds = time.perf_counter() - t0
+            stats.measured_ops = len(extents)
+            stats.measured_bytes = sum(b.nbytes for b in blocks)
+            sp.set(extents=stats.measured_ops, bytes=stats.measured_bytes)
         if not fetch_payload:
             return None
         # locate each requested physical position inside its extent block
