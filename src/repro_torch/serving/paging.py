@@ -31,9 +31,9 @@ WORST-CASE sequence length) and this module owns all KV memory instead:
 
 Everything here is host-side numpy/python bookkeeping, decision for
 decision the reference's. The device work is in-place page copies (prompt
-writes, CoW) into the arenas, which the decode step then indexes through
-`[B, max_pages]` page-table arrays (`models/kvcache.py` paged writes +
-`kernels/ops.paged_decode_attention`). Declared divergence: the port
+writes, one scatter a cache leaf; CoW) into the arenas, which the decode
+step then indexes through `[B, max_pages]` page-table arrays
+(`models/kvcache.py` paged writes + `kernels/ops.paged_decode_attention`). Declared divergence: the port
 decodes resident and offload through one Python layer loop, so the pool
 holds a single list of per-group arenas (`cache_groups`) and the
 reference's `layout=` argument has no counterpart.
@@ -45,6 +45,7 @@ from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -384,10 +385,17 @@ class PagePool:
         are identical by construction — same prompt prefix, same
         deterministic prefill). `small_cache` is the per-group list of
         `{sub_j: KVCache|QuantKVCache [1, S, KV, hd]}` that
-        `Model.init_cache(1, ...)` produced."""
+        `Model.init_cache(1, ...)` produced.
+
+        Each cache leaf takes one `index_copy_` of all its owned full pages
+        (the prompt's rows viewed as [n, page_size, ...] pages) and, when
+        the prompt ends inside a page, one copy of the tail's rows alone:
+        rows past the prompt keep their bytes, as in the reference. The
+        span's `launches` counts those copies, at most two a leaf."""
         T = table.prompt_len
         P = self.page_size
         n_pages = cdiv(T, P)
+        n_full = T // P
         with get_tracer().span("write_prompt", uid=table.uid) as sp:
             # first page this request owns (refcount 1): shared full pages
             # and a still-shared partial page (exact-match fork) must not be
@@ -395,16 +403,25 @@ class PagePool:
             first = 0
             while first < n_pages and self._refc[table.pages[first]] > 1:
                 first += 1
-            copies = 0
-            for i in range(first, n_pages):
-                lo, hi = i * P, min(T, (i + 1) * P)
-                phys = table.pages[i]
-                for group, small_group in zip(self.cache_groups, small_cache):
-                    for sub, arena in group.items():
-                        for leaf, s in zip(arena, small_group[sub]):
-                            leaf[phys, :hi - lo].copy_(s[0, lo:hi])
-                            copies += 1
-            sp.set(pages=n_pages - first, copies=copies)
+            n = max(n_full - first, 0)
+            idx = torch.as_tensor(table.pages[first:first + n],
+                                  dtype=torch.int64, device=self.device)
+            tail = table.pages[n_full] if first <= n_full < n_pages else None
+            launches = 0
+            for group, small_group in zip(self.cache_groups, small_cache):
+                for sub, arena in group.items():
+                    for leaf, s in zip(arena, small_group[sub]):
+                        rows = s[0, first * P:T]
+                        if rows.dtype != leaf.dtype:
+                            rows = rows.to(leaf.dtype)
+                        if n:
+                            leaf.index_copy_(0, idx, rows[:n * P].view(
+                                n, P, *leaf.shape[2:]))
+                            launches += 1
+                        if tail is not None:
+                            leaf[tail, :T - n_full * P].copy_(rows[n * P:])
+                            launches += 1
+            sp.set(pages=n_pages - first, launches=launches)
 
     def register_prefixes(self, prompt: np.ndarray, table: PageTable) -> None:
         """Register every page-aligned prefix of a just-written prompt in the

@@ -532,6 +532,74 @@ def test_paged_server_runs_the_kernel_on_card(dev, mode):
         assert margin < 2e-2, (h.uid, t, margin)
 
 
+def _write_prompt_per_page(pool, table, small):
+    """The oracle: one `copy_` a page a cache leaf, each page's rows up to
+    the prompt's end, pages a request shares skipped."""
+    T, P = table.prompt_len, pool.page_size
+    first = 0
+    while first < -(-T // P) and pool._refc[table.pages[first]] > 1:
+        first += 1
+    for i in range(first, -(-T // P)):
+        lo, hi = i * P, min(T, (i + 1) * P)
+        for group, small_group in zip(pool.cache_groups, small):
+            for sub, arena in group.items():
+                for leaf, s in zip(arena, small_group[sub]):
+                    leaf[table.pages[i], :hi - lo].copy_(s[0, lo:hi])
+
+
+@pytest.mark.parametrize("small_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32-cast"])
+def test_prompt_write_equals_per_page_copies_on_card(dev, small_dtype):
+    """opt-1.3b's KV widths (2 of its 24 layers), bf16 arenas at page 16:
+    a 1,500-token prompt (93 full pages and a 12-row tail) on pages that
+    come back out of order off the free list, behind a registry-shared
+    prefix of 4 pages. `PagePool.write_prompt` leaves every arena equal to
+    what the per-page loop writes over the same random bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.kvcache import KVCache
+    from repro_torch.serving.paging import PagePool
+    cfg = get_config("opt-1.3b", n_layers=2)
+    P, T, max_len = 16, 1500, 2048
+    pool = PagePool(cfg, num_pages=256, page_size=P, max_len=max_len,
+                    dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for group in pool.cache_groups:
+        for arena in group.values():
+            for leaf in arena:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=dev))
+
+    def small_cache():
+        shape = (1, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return [{sub: KVCache(*(torch.randn(shape, generator=gen, device=dev)
+                                .to(small_dtype) for _ in range(2)))
+                 for sub in group} for group in pool.cache_groups]
+
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, 1000, 64).astype(np.int32)
+    held, _ = pool.admit(head, 1, uid=0)          # registered, then retired
+    pool.write_prompt(held, small_cache())
+    pool.register_prefixes(head, held)
+    gone, _ = pool.admit(rng.integers(0, 1000, 200).astype(np.int32), 1,
+                         uid=1)
+    pool.release(held)
+    pool.release(gone)
+    prompt = np.concatenate([head, rng.integers(0, 1000, T - 64)]).astype(
+        np.int32)
+    table, plan = pool.admit(prompt, 16, uid=2)
+    assert plan.shared_len == 64 and table.pages != sorted(table.pages)
+    small = small_cache()
+    leaves = [x for g in pool.cache_groups for a in g.values() for x in a]
+    before = [x.clone() for x in leaves]
+    pool.write_prompt(table, small)
+    got = [x.clone() for x in leaves]
+    for x, b in zip(leaves, before):
+        x.copy_(b)
+    _write_prompt_per_page(pool, table, small)
+    for x, g in zip(leaves, got):
+        assert torch.equal(x, g)
+
+
 # -- co-activation counts --------------------------------------------------------
 
 def _coact_masks(dev, T, N, dtype, seed=0):

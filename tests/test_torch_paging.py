@@ -120,6 +120,108 @@ def test_pool_decisions_match_reference_under_random_interleaving(seed):
     assert tpool.n_evictable() == 0
 
 
+def _fill_arenas(rng, jpool, tpool):
+    """The same random bytes in every arena of both pools, so the rows a
+    prompt write must leave alone (past the prompt in its last page, other
+    requests' pages, the null page) are checked as left alone. Float values
+    are multiples of 1/8, exact in bf16."""
+    groups = []
+    for jg, tg in zip(jpool.cache_groups, tpool.cache_groups):
+        group = {}
+        for sub, tarena in tg.items():
+            jleaves = []
+            for jleaf, tleaf in zip(jg[sub], tarena):
+                if tleaf.dtype == torch.int8:
+                    a = rng.integers(-128, 128, tleaf.shape).astype(np.int8)
+                else:
+                    a = (rng.integers(-64, 64, tleaf.shape) / 8).astype(
+                        np.float32)
+                tleaf.copy_(torch.from_numpy(a))
+                jleaves.append(jnp.asarray(a).astype(jleaf.dtype))
+            group[sub] = type(jg[sub])(*jleaves)
+        groups.append(group)
+    jpool.cache_groups = groups
+
+
+def _same_arena_bytes(jpool, tpool):
+    for jg, tg in zip(jpool.cache_groups, tpool.cache_groups):
+        for sub, tarena in tg.items():
+            for jleaf, tleaf in zip(jg[sub], tarena):
+                np.testing.assert_array_equal(
+                    tleaf.contiguous().view(torch.uint8).numpy(),
+                    np.asarray(jleaf).view(np.uint8))
+
+
+# (prompt length, or ("fork"|"prefix", source, extra tokens)) a step;
+# "release" retires the named earlier request
+_WRITE_SCRIPTS = {
+    # freed pages come back off the LIFO free list in reverse: [2, 1, 0, 5]
+    "lifo": [10, 7, ("release", 0), 13],
+    "aligned": [5, ("release", 0), 12],
+    "short": [3],
+    # the registry shares the first 8 tokens: two pages skipped, then one
+    # owned full page and a tail
+    "prefix": [10, ("prefix", 0, 5)],
+    # a live fork of a 6-token prompt extended by 5: the shared partial
+    # page is copied on write at admission, then written whole
+    "fork": [6, ("fork", 0, 5)],
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("script", list(_WRITE_SCRIPTS))
+def test_prompt_writes_match_reference_bytes(script, quant):
+    """Prompt writes over arenas filled with random bytes: pages out of
+    order, a prompt ending on a page boundary, one shorter than a page, a
+    registry-shared prefix (the first owned page past 0) and a live fork of
+    a partial page. Every byte of every arena equals the reference's."""
+    cfg_kw = dict(TINY, n_layers=2, kv_quant=quant)
+    cfg = get_config("opt-350m", reduced=True, **cfg_kw)
+    P, NP, max_len = 4, 16, 24
+    jpool = JPagePool(jget_config("opt-350m", reduced=True, **cfg_kw),
+                      num_pages=NP, page_size=P, max_len=max_len,
+                      layout="groups")
+    tpool = PagePool(cfg, num_pages=NP, page_size=P, max_len=max_len,
+                     device="cpu")
+    rng = np.random.default_rng(7)
+    _fill_arenas(rng, jpool, tpool)
+    prompts, jts, tts = [], [], []
+    for step in _WRITE_SCRIPTS[script]:
+        if isinstance(step, tuple) and step[0] == "release":
+            jpool.release(jts[step[1]])
+            tpool.release(tts[step[1]])
+            continue
+        if isinstance(step, tuple):
+            kind, src, extra = step
+            base = prompts[src][:8] if kind == "prefix" else prompts[src]
+            prompt = np.concatenate(
+                [base, rng.integers(0, 32, extra)]).astype(np.int32)
+        else:
+            prompt = rng.integers(0, 32, step).astype(np.int32)
+        uid = len(prompts)
+        jt, _ = jpool.admit(prompt, 4, uid=uid)
+        tt, _ = tpool.admit(prompt, 4, uid=uid)
+        jcache, tcache = _small_caches(rng, cfg, 2, max_len)
+        jpool.write_prompt(jt, jcache)
+        tpool.write_prompt(tt, tcache)
+        if script == "prefix":      # elsewhere released pages come back
+            jpool.register_prefixes(prompt, jt)
+            tpool.register_prefixes(prompt, tt)
+        prompts.append(prompt)
+        jts.append(jt)
+        tts.append(tt)
+    # each script reaches the case it is named after
+    last = tts[-1]
+    if script in ("lifo", "aligned"):
+        assert last.pages != sorted(last.pages)
+    assert (last.prompt_len % P == 0) == (script == "aligned")
+    assert (last.prompt_len < P) == (script == "short")
+    assert (tpool.stats.prefix_hits == 1) == (script in ("prefix", "fork"))
+    assert tpool.stats.cow_copies == (script == "fork")
+    _same_state(jpool, tpool, jts, tts)
+    _same_arena_bytes(jpool, tpool)
+
+
 @pytest.mark.parametrize("overcommit", [False, True],
                          ids=["strict", "overcommit"])
 def test_gate_and_page_tables_match_reference(overcommit):
