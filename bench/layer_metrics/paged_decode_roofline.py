@@ -2,18 +2,17 @@
 roofline over the profiled steps, in percent (`kernels/paged_decode.py`,
 `kernels/csrc/paged_decode.cu`).
 
-A call (one a layer a decode step) attends each decoded row over the
-positions it has: K and V of each position once (2 x heads x head_dim
-elements of the arena's dtype), the page-table entries naming its pages
-(4 bytes a page), its position (4 bytes), and the float32 query and
-output (heads x head_dim x 4 bytes each); 4 operations a (position, head,
-element). Its bound is the larger of the bytes over 3.35 TB/s and the
-operations over 67 TFLOP/s (H100 SXM data sheet). The share is the mean
-bound a call over the mean device time a launch (`torch.profiler`)."""
+A call (the architecture module's `paged_attention` calls a decode step)
+attends each decoded row over the positions it has: K and V of each
+position once (the module's `kv_bytes`), the page-table entries naming
+its pages (4 bytes a page), its position (4 bytes), and the float32 query
+and output (heads x head_dim x 4 bytes each); 4 operations a (position,
+head, element). Its bound is the larger of the bytes over 3.35 TB/s and
+the operations over 67 TFLOP/s (H100 SXM data sheet). The share is the
+mean bound a call over the mean device time a launch (`torch.profiler`)."""
 from nlbench.yardstick import H100_FP32_FLOPS, roofline_seconds
 
 KERNEL = "paged_split_kernel"
-ELEM = {"bfloat16": 2, "float32": 4}
 
 
 def read(view):
@@ -24,14 +23,13 @@ def read(view):
     rows = view.decode_rows(p.steps)
     if not times or not rows:
         return None
-    cfg = view.cfg
-    H, hd, L = cfg["n_heads"], cfg["head_dim"], cfg["n_layers"]
-    kv = cfg["n_kv_heads"] * hd * ELEM[cfg["dtype"]]
-    page = cfg["serving"]["page_size"]
+    att = view.arch.paged_attention(view.cfg)
+    H, hd, kv = att["heads"], att["head_dim"], att["kv_bytes"]
+    page = view.cfg["serving"]["page_size"]
     bounds = []
     for ctxs in rows.values():
-        nbytes = sum(2 * c * kv + 4 * -(-c // page) + 4 + 2 * H * hd * 4
+        nbytes = sum(c * kv + 4 * -(-c // page) + 4 + 2 * H * hd * 4
                      for c in ctxs)
         flops = sum(4 * c * H * hd for c in ctxs)
-        bounds += [roofline_seconds(flops, nbytes, H100_FP32_FLOPS)] * L
+        bounds += [roofline_seconds(flops, nbytes, H100_FP32_FLOPS)] * att["calls"]
     return 100.0 * (sum(bounds) / len(bounds)) / (sum(times) / len(times))

@@ -1,6 +1,6 @@
 """store.kib_per_tok: KiB the file stores read from the pack in the
-window's extent reads (counted by the harness at
-`FileNeuronStore._read_extent`), a decode token."""
+window's extent reads (the `measured_bytes` of the `IOStats` each
+`FileNeuronStore.read` call returns), a decode token."""
 
 
 def read(view):

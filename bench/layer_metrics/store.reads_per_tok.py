@@ -1,6 +1,6 @@
 """store.reads_per_tok: the extent reads the file stores issued in the
-window (counted by the harness at `FileNeuronStore._read_extent`), a
-decode token."""
+window (the `measured_ops` of the `IOStats` each `FileNeuronStore.read`
+call returns), a decode token."""
 
 
 def read(view):

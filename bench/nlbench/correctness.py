@@ -1,5 +1,6 @@
 """How `correct` is decided: the tokens the timed path served, held
-against the plain float32 reference.
+against the plain float32 reference of the configuration's architecture
+(its module's `forward_logits`, `bench/arch/<arch>.py`).
 
 Once the window has closed and the program's state is freed, a sample of
 the requests (one a session, from sessions drawn from the seed, with the
@@ -24,13 +25,22 @@ reference, of the token the control puts first.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from reference.opt_reference import (forward_logits, no_tf32, pack_rows_int8,
-                                     served_gaps)
+
+def no_tf32() -> None:
+    """float32 products in float32: no TF32 on the tensor cores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def served_gaps(ref_logits: torch.Tensor, served: Sequence[int]) -> torch.Tensor:
+    """Per served token: how far its logit lies below the best logit."""
+    tok = torch.as_tensor(list(served), device=ref_logits.device).long()
+    return ref_logits.max(dim=1).values - ref_logits.gather(1, tok[:, None])[:, 0]
 
 
 def sample_requests(rec, t0: float, t_end: float, seed: int,
@@ -74,11 +84,7 @@ def to_fp8(w: torch.Tensor) -> torch.Tensor:
     return (w / s).to(torch.float8_e4m3fn).float() * s
 
 
-def _decode_rows(weights: Dict, fn) -> List[tuple]:
-    return [fn(lw["w_up"], lw["w_down"]) for lw in weights["layers"]]
-
-
-def check(cfg: Dict, cell, weights: Dict, sample, device,
+def check(cfg: Dict, cell, arch, weights: Dict, sample, device,
           control: bool = False) -> Tuple[Dict, Dict]:
     """(checks, extra): `checks` maps each number the cell's file gives a
     limit to its value and limit; `extra` counts what was compared and,
@@ -87,7 +93,7 @@ def check(cfg: Dict, cell, weights: Dict, sample, device,
     squares (`mean_sq_logit_gap`)."""
     no_tf32()
     packed = cell.mode == "offload" and cfg["pack"]["quantize"] == "int8"
-    dec = _decode_rows(weights, pack_rows_int8) if packed else None
+    dec = arch.pack_rows(weights) if packed else None
     gaps, gaps_c = [], []
     with torch.inference_mode():
         for uid, prompt, served in sample:
@@ -97,12 +103,13 @@ def check(cfg: Dict, cell, weights: Dict, sample, device,
                  np.asarray(served[:-1], np.int64)]), device=device)
             pos = range(T - 1, T - 1 + len(served))
             ffn = dec.__getitem__ if dec else None
-            ref = forward_logits(weights, cfg, seq, pos, decode_from=T,
-                                 decode_ffn=ffn)
+            ref = arch.forward_logits(weights, cfg, seq, pos, decode_from=T,
+                                      decode_ffn=ffn)
             gaps.append(served_gaps(ref, served).float().cpu())
             if control:
-                low = forward_logits(weights, cfg, seq, pos, decode_from=T,
-                                     decode_ffn=ffn, weight_map=to_fp8)
+                low = arch.forward_logits(weights, cfg, seq, pos,
+                                          decode_from=T, decode_ffn=ffn,
+                                          weight_map=to_fp8)
                 top = low.argmax(dim=1).tolist()
                 gaps_c.append(served_gaps(ref, top).float().cpu())
     values = numbers(gaps)

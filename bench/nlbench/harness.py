@@ -6,8 +6,13 @@ drives it through `submit` / `step` as a client would and takes its own
 host-clock stamps (a callback on every token). In offload cells it also
 wraps two calls of the program's objects, without changing what they do:
 `OffloadedFFNRuntime.ffn_apply_batch` (to count each layer's activated
-neurons) and each `FileNeuronStore`'s `read` / `_read_extent` (to count
-the extents and bytes each read call takes from the pack file).
+neurons) and each `FileNeuronStore`'s `read` (to take the extents and bytes
+each read call took from the pack file, as the store's own `IOStats` of
+the call count them).
+
+What the model's shape decides (its weights, its reference, the program's
+config and parameters, FLOPs and bytes) comes from the architecture module
+the configuration names (`bench/arch/<arch>.py`).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from nlbench import traffic as traffic_lib
-from nlbench.spec import Cell, layer_reader
+from nlbench.spec import Cell, arch_module, layer_reader
 from nlbench.yardstick import ufs40_read_seconds
 
 THREADS = 4            # torch, OpenMP and BLAS threads of the host
@@ -78,7 +83,6 @@ class Recorder:
         self.steps: List[tuple] = []                 # (step, t_begin, t_end)
         self.ffn: List[tuple] = []     # (t, layer, rows, activated, union)
         self.reads: List[tuple] = []   # (t, extents, bytes) per read call
-        self._read_open: Optional[list] = None
 
     def on_token(self, uid: int, tok: int) -> None:
         lst = self.by_uid.setdefault(uid, [])
@@ -100,66 +104,24 @@ def instrument_offload(runtime, rec: Recorder) -> None:
 
     runtime.ffn_apply_batch = ffn_apply_batch
     for eng in runtime.engines:
-        store = eng.store
-        read, read_extent = store.read, store._read_extent
+        def read_w(*a, _read=eng.store.read, **kw):
+            data, stats = _read(*a, **kw)
+            rec.reads.append((time.perf_counter(), int(stats.measured_ops),
+                              int(stats.measured_bytes)))
+            return data, stats
 
-        def read_w(*a, _read=read, **kw):
-            rec._read_open = [0, 0]
-            try:
-                return _read(*a, **kw)
-            finally:
-                ops, nbytes = rec._read_open
-                rec._read_open = None
-                rec.reads.append((time.perf_counter(), ops, nbytes))
-
-        def read_extent_w(*a, _re=read_extent, **kw):
-            out = _re(*a, **kw)
-            if rec._read_open is not None:
-                rec._read_open[0] += 1
-                rec._read_open[1] += int(out.nbytes)
-            return out
-
-        store.read = read_w
-        store._read_extent = read_extent_w
+        eng.store.read = read_w
 
 
 # -- the program's side ------------------------------------------------------------
 
-def model_config(cfg: Dict, max_len: int):
-    from repro_torch.configs.base import ModelConfig
-    return ModelConfig(
-        arch_id=cfg["name"], family="dense", source=cfg["source"],
-        n_layers=cfg["n_layers"], d_model=cfg["d_model"],
-        n_heads=cfg["n_heads"], n_kv_heads=cfg["n_kv_heads"],
-        d_ff=cfg["d_ff"], vocab_size=cfg["vocab_size"],
-        activation=cfg["activation"], norm=cfg["norm"],
-        rope_theta=cfg["rope_theta"], max_seq_len=max_len,
-        param_dtype=cfg["dtype"], compute_dtype=cfg["dtype"], remat=False)
-
-
-def program_params(weights: Dict) -> Dict:
-    """The program's parameter tree over copies of the benchmark's
-    weights (the program never holds the tensors the reference reads)."""
-    c = lambda t: t.clone()                                     # noqa: E731
-    norm = lambda p: {"scale": c(p["scale"]), "bias": c(p["bias"])}  # noqa
-    stack = [{"sub_0": {
-        "norm1": norm(lw["norm1"]),
-        "mixer": {k: c(lw[k]) for k in ("wq", "wk", "wv", "wo")},
-        "norm2": norm(lw["norm2"]),
-        "ffn": {"w_up": c(lw["w_up"]), "w_down": c(lw["w_down"])}}}
-        for lw in weights["layers"]]
-    return {"embed": {"embedding": c(weights["embedding"]),
-                      "lm_head": c(weights["lm_head"])},
-            "stack": stack, "final_norm": norm(weights["final_norm"])}
-
-
-def ensure_pack(model, params, cfg: Dict, key: str, seed: int, cache: Path,
-                device, log) -> tuple:
+def ensure_pack(model, params, cfg: Dict, key: str, calib_seed: int,
+                cache: Path, device, log) -> tuple:
     """The NeuronPack of these weights: built once into the cache (one pack
     per configuration, keyed by its FFN weights and pack settings), served
-    from there by every later run. Returns (path, build seconds or 0)."""
+    from there by every later run; `calib_seed` draws the builder's
+    calibration tokens. Returns (path, build seconds or 0)."""
     from repro_torch.store.packer import build_pack
-    from weights import seed_for
     d = cache / "packs"
     d.mkdir(parents=True, exist_ok=True)
     path, meta = d / f"{cfg['name']}.npack", d / f"{cfg['name']}.json"
@@ -177,7 +139,7 @@ def ensure_pack(model, params, cfg: Dict, key: str, seed: int, cache: Path,
     rep = build_pack(model, params, tmp, calib_tokens=pk["calib_tokens"],
                      calib_batch=pk["calib_batch"],
                      calib_seqlen=pk["calib_seqlen"],
-                     seed=seed_for(cfg, seed, 2), quantize=pk["quantize"],
+                     seed=calib_seed, quantize=pk["quantize"],
                      placement_mode=pk["placement_mode"], device=device)
     # on disk before the window opens: the pack's writeback does not run
     # beside the reads it serves
@@ -212,6 +174,7 @@ class View:
     run, the program's counters and spans, and the device profile."""
     cell: Cell
     cfg: Dict
+    arch: Any                          # the configuration's bench/arch module
     t0: float
     t1: float
     rec: Recorder
@@ -283,22 +246,25 @@ def stats_dict(server) -> Dict:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, log=None, control: bool = False,
-             fault=None, cache: Optional[Path] = None) -> Dict:
+             fault=None, cache: Optional[Path] = None,
+             steps: Optional[int] = None) -> Dict:
     """One run of `cell`; returns the result line's dict (and, with
     `control`, the control's reading under "control"). `fault(server,
-    runtime)` breaks the timed path (tests of the check)."""
+    runtime)` breaks the timed path (tests of the check). With `steps`,
+    the window is that many server steps in place of `seconds` (tests on
+    the CPU, whose clock would make a window's work vary)."""
     import torch
+    from repro_torch.configs import base as program_configs
     from repro_torch.models.model import Model
     from repro_torch.serving.server import InferenceServer
     from nlbench import correctness, profiling
-    from reference.opt_reference import no_tf32
-    from weights import ffn_fingerprint, make_weights
 
     log = log or (lambda obj: print(json.dumps(obj), flush=True))
     cfg, mix = cell.config, cell.traffic
+    arch = arch_module(cfg["arch"], cell.bench)
     device = torch.device(device)
     on_card = device.type == "cuda"
-    no_tf32()
+    correctness.no_tf32()
     if on_card:
         torch.set_num_threads(THREADS)
         torch.cuda.set_device(device)
@@ -308,15 +274,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     phases = {"start": time.perf_counter() - t_start}
     t_ph = time.perf_counter()
-    weights, wrep = make_weights(cfg, seed, device)
+    weights, wrep = arch.make_weights(cfg, seed, device)
     if on_card:
         torch.cuda.synchronize(device)
     phases["weights"] = time.perf_counter() - t_ph
     t_ph = time.perf_counter()
     max_len = traffic_lib.max_len(mix)
-    mcfg = model_config(cfg, max_len)
+    mcfg = arch.model_config(cfg, max_len, program_configs)
     model = Model(mcfg, device=device)
-    params = program_params(weights)
+    params = arch.program_params(weights)
     page = int(cfg["serving"]["page_size"])
     slots = int(mix["max_slots"])
     num_pages = slots * -(-max_len // page)
@@ -326,8 +292,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         from repro_torch.core.engine import EngineConfig
         from repro_torch.serving.engine import OffloadedFFNRuntime
         pack, pack_build_s = ensure_pack(model, params, cfg,
-                                         ffn_fingerprint(weights), seed,
-                                         cache, device, log)
+                                         arch.ffn_fingerprint(weights),
+                                         arch.pack_seed(cfg, seed), cache,
+                                         device, log)
         runtime = OffloadedFFNRuntime.from_pack(
             mcfg, str(pack), engine_cfg=EngineConfig(**cfg["engine"]),
             device=device)
@@ -375,7 +342,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     t0 = time.perf_counter()
     setup_s = t0 - t_start
-    while time.perf_counter() < t0 + seconds:
+    end_step = None if steps is None else loop.step_idx + steps
+    while (time.perf_counter() < t0 + seconds if end_step is None
+           else loop.step_idx < end_step):
         if trace and on_card and prof_raw is None and loop.step_idx == prof_at:
             prof_raw = profiling.profile_steps(loop, PROFILE_STEPS, device)
         else:
@@ -405,31 +374,32 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     in_window = [tk for tk in rec.tokens if t0 <= tk.t <= t1]
     decode_in_window = [tk for tk in in_window if tk.n >= 2]
-    view = View(cell=cell, cfg=cfg, t0=t0, t1=t1, rec=rec,
+    view = View(cell=cell, cfg=cfg, arch=arch, t0=t0, t1=t1, rec=rec,
                 window_steps=window_steps, decode_tokens=len(decode_in_window),
                 stats0=stats0, stats1=stats1, history=history, spans=spans,
                 profile=prof, tracer_base=tracer_base)
 
     # the activation share the served path saw, beside the target
-    share = {"target": cfg["sparsity"]["target"],
-             "calibration_per_layer": wrep["calib_shares"]}
+    share = {"target": wrep.get("target"),
+             "calibration_per_layer": wrep.get("calib_shares")}
     if rec.ffn:
-        L, f = cfg["n_layers"], cfg["d_ff"]
+        f = np.asarray(arch.ffn_neurons(cfg), dtype=np.float64)
+        L = len(f)
         act = np.zeros(L)
         rows = np.zeros(L)
         union = np.zeros(L)
-        steps = np.zeros(L)
+        calls = np.zeros(L)
         for t, layer, r, a, u in rec.ffn:
             if t0 <= t <= t1:
                 act[layer] += a
                 rows[layer] += r
                 union[layer] += u
-                steps[layer] += 1
+                calls[layer] += 1
         ok = rows > 0
         share["served_per_layer"] = [float(x) for x in
                                      np.where(ok, act / np.maximum(rows, 1) / f, 0)]
-        share["served_mean"] = float(act.sum() / max(rows.sum(), 1) / f)
-        share["union_per_step"] = float(union.sum() / max(steps.sum(), 1) / f)
+        share["served_mean"] = float(act.sum() / max((rows * f).sum(), 1))
+        share["union_per_step"] = float(union.sum() / max((calls * f).sum(), 1))
     log({"activation_share": share})
 
     attempted = len(sent)
@@ -464,8 +434,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    checks, extra = correctness.check(cfg, cell, weights, sample, device,
-                                      control=control)
+    checks, extra = correctness.check(cfg, cell, arch, weights, sample,
+                                      device, control=control)
     check_s = time.perf_counter() - t_check
 
     dev = {"platform": "gpu" if on_card else "cpu",

@@ -5,6 +5,9 @@ Each piece is a file of its own, so that a later change adds a cell, a
 mix, a configuration or a per-layer metric by adding files and entries:
 
 - the configuration: the `file` that its `configs` entry gives;
+- the model's architecture: `bench/arch/<arch>.py`, named by the
+  configuration's `arch` key: its weights, its reference, the program's
+  config and parameters, and the shape counts the readers take;
 - the traffic mix: `bench/traffic/<traffic>.json`;
 - the cell's serving mode and correctness limits: `bench/cells/<cell>.json`;
 - a per-layer metric: `bench/layer_metrics/<metric>.py`, whose
@@ -17,6 +20,7 @@ import importlib.util
 import json
 import re
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 BENCH = Path(__file__).resolve().parent.parent
@@ -81,6 +85,9 @@ def load_cell(name: str, root: Path) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     cfg = load_json(root / configs[w["config"]]["file"])
     bench_dir = root / "bench"
+    if "arch" not in cfg or not (bench_dir / "arch" / f"{cfg['arch']}.py").is_file():
+        raise FileNotFoundError(f"configuration {cfg['name']!r} names no "
+                                f"architecture in bench/arch/ ('arch' key)")
     traffic = load_json(bench_dir / "traffic" / f"{w['traffic']}.json")
     cell = load_json(bench_dir / "cells" / f"{name}.json")
     return Cell(name=name, chips=int(w["chips"]), config=cfg, traffic=traffic,
@@ -91,14 +98,24 @@ def load_cell(name: str, root: Path) -> Cell:
                            if m.applies_to(name)])
 
 
-def layer_reader(metric: str, bench: Path = BENCH) -> Callable:
-    """`read(view)` of `bench/layer_metrics/<metric>.py`."""
-    path = bench / "layer_metrics" / f"{metric}.py"
+def _load(path: Path, prefix: str, name: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        "layer_metric_" + metric.replace(".", "_").replace("-", "_"), path)
+        prefix + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def layer_reader(metric: str, bench: Path = BENCH) -> Callable:
+    """`read(view)` of `bench/layer_metrics/<metric>.py`."""
+    return _load(bench / "layer_metrics" / f"{metric}.py", "layer_metric_",
+                 metric).read
+
+
+def arch_module(arch: str, bench: Path = BENCH) -> ModuleType:
+    """The module `bench/arch/<arch>.py` (see `bench/arch/opt.py` for what
+    it gives)."""
+    return _load(bench / "arch" / f"{arch}.py", "bench_arch_", arch)
 
 
 def check_names(bench: Dict) -> List[str]:

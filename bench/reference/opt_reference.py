@@ -31,12 +31,6 @@ import torch
 LN_EPS = 1e-5
 
 
-def no_tf32() -> None:
-    """float32 products in float32: no TF32 on the tensor cores."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
@@ -118,12 +112,6 @@ def forward_logits(weights: Dict, cfg: Dict, tokens: torch.Tensor,
     idx = torch.as_tensor(list(positions_out), device=x.device, dtype=torch.long)
     hf = layer_norm(x[idx], weights["final_norm"])
     return hf @ wm(weights["lm_head"]).float()
-
-
-def served_gaps(ref_logits: torch.Tensor, served: Sequence[int]) -> torch.Tensor:
-    """Per served token: how far its logit lies below the best logit."""
-    tok = torch.as_tensor(list(served), device=ref_logits.device).long()
-    return ref_logits.max(dim=1).values - ref_logits.gather(1, tok[:, None])[:, 0]
 
 
 def layer_shares(weights: Dict, cfg: Dict, tokens: torch.Tensor) -> List[float]:

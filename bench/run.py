@@ -5,15 +5,16 @@
 
 from the root of a checkout. The cell, its configuration, its traffic mix
 and its metrics are found by name from `BENCHMARK.json` (see
-`bench/nlbench/spec.py`). With `--trace 0` the result line holds the cell's
-end-to-end metrics, with `--trace 1` its per-layer metrics, read in a run
-with the program's tracer on and a stretch of steps under the profiler.
-Every run checks the tokens it served against the plain reference
-(`bench/reference/`), prints each compared number beside its limit as the
-last lines of standard error, and prints the result as one JSON object on
-the last line of standard output. It exits non-zero, with no result, when
-the card or the program is missing, or when JAX or the JAX package `repro`
-was loaded.
+`bench/nlbench/spec.py`), the model's architecture by the name its
+configuration gives (`bench/arch/`). With `--trace 0` the result line
+holds the cell's end-to-end metrics, with `--trace 1` its per-layer
+metrics, read in a run with the program's tracer on and a stretch of steps
+under the profiler. Every run checks the tokens it served against the
+plain reference of the architecture (`bench/reference/`), prints each
+compared number beside its limit as the last lines of standard error, and
+prints the result as one JSON object on the last line of standard output.
+It exits non-zero, with no result, when the card or the program is
+missing, or when JAX or the JAX package `repro` was loaded.
 
 `--control 1` (not used by the benchmark's own runs) also reads the
 lower-precision control at the same positions; it is how the limits were
@@ -46,15 +47,17 @@ def parse(argv):
 
 
 def load_modules():
-    """Import everything a run imports (no card needed)."""
+    """Import everything a run imports (no card needed), every
+    architecture module with it."""
     from nlbench import correctness, profiling, spec  # noqa: F401
     import repro_torch.serving.server  # noqa: F401
     import repro_torch.serving.engine  # noqa: F401
     import repro_torch.store.packer  # noqa: F401
     import repro_torch.core.engine  # noqa: F401
     import repro_torch.obs  # noqa: F401
-    import weights  # noqa: F401
     import torch.profiler  # noqa: F401
+    for path in sorted((BENCH / "arch").glob("*.py")):
+        spec.arch_module(path.stem, BENCH)
 
 
 def fail(msg: str, code: int = 2) -> int:

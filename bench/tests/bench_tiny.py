@@ -54,13 +54,13 @@ def tiny_cell(mode: str, limits=None) -> Cell:
 
 def run_tiny(mode: str, tmp_path, seed: int = 3, trace: bool = False,
              fault=None, control: bool = False, limits=None,
-             seconds: float = 1.5):
+             seconds: float = 1.5, steps=None):
     import time
     from nlbench.harness import run_cell
     logs = []
     res = run_cell(tiny_cell(mode, limits), seed, seconds, trace, "cpu",
                    time.perf_counter(), log=logs.append, fault=fault,
-                   control=control, cache=Path(tmp_path))
+                   control=control, cache=Path(tmp_path), steps=steps)
     return res, logs
 
 

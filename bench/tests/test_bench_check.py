@@ -7,10 +7,13 @@ correct. So does a run of the harness with the timed path broken
 underneath it: a token altered where it is produced; a decode step that
 leaves the KV cache as it was; half of the batch left out, the mean of
 the other half taken in its place. (The exchange between chips has no
-fault here: every cell runs on one card.) These run at a CPU test's size;
-`PERF.md` gives the readings of the control on the card at the cells'
-own sizes."""
+fault here: every cell runs on one card.) These run at a CPU test's size,
+over a window of a fixed number of steps, so that a busy or a quiet host
+runs the same work; `PERF.md` gives the readings of the control on the
+card at the cells' own sizes."""
 from __future__ import annotations
+
+import traceback
 
 import pytest
 
@@ -19,11 +22,16 @@ from bench_tiny import BENCH, load_json, run_tiny
 # Limits at this size for the numbers each cell's file compares. Sound
 # runs on the CPU read widest gaps of 0 to 0.0365 and mean squared gaps of
 # 0 to 1.01e-6; the control 0.0436 to 0.579 and 4.8e-5 to 0.008 (10 to 24
-# seeds a mode, 3 s windows). The cells' limits are set from the card's
-# readings at their own sizes (`PERF.md`).
+# seeds a mode, 3 s windows); over 120 steps (5 seeds a mode) sound runs
+# 0 to 0.0194 and, offload, 0 to 1.9e-7, the control 0.083 to 0.320 and
+# 3.4e-4 to 1.0e-3, the faults 0.157 to 5.95. The cells' limits are set
+# from the card's readings at their own sizes (`PERF.md`).
 TINY_LIMITS = {"logit_gap": 0.06, "mean_sq_logit_gap": 1e-5}
 CELLS = {"offload": "opt-350m.offload.chat4",
          "resident": "opt-1.3b.resident.longctx128"}
+# a window of 120 steps: each session finishes several requests in it, and
+# none runs out of the requests its mix plans (64 of 8 to 16 tokens)
+STEPS = 120
 
 
 def limits(mode):
@@ -31,13 +39,30 @@ def limits(mode):
     return {k: TINY_LIMITS[k] for k in cell["limits"]}
 
 
+def run_checked(mode, tmp_path, **kw):
+    """A tiny run over STEPS steps, and what to print beside an assertion:
+    the run's exception, or its compared numbers, the control's and what
+    was checked."""
+    try:
+        res, logs = run_tiny(mode, tmp_path, limits=limits(mode),
+                             steps=STEPS, **kw)
+    except Exception:                       # printed by the assertion
+        return None, traceback.format_exc()
+    run = [e["run"] for e in logs if "run" in e]
+    said = {"checks": res["checks"], "control": res.get("control"),
+            "attempted": res["attempted"], "failed": res["failed"],
+            "run": {k: run[0][k] for k in ("steps", "served_tokens_checked",
+                                           "requests_checked")} if run else None}
+    return res, said
+
+
 @pytest.mark.parametrize("mode", ["offload", "resident"])
 def test_sound_runs_are_correct_and_the_control_is_not(mode, tmp_path):
     for seed in (2**31 + 3, 2**31 + 4):
-        res, _ = run_tiny(mode, tmp_path, seed=seed, control=True,
-                          limits=limits(mode), seconds=3.0)
-        assert res["correct"], res["checks"]
-        assert any(res["control"][k] > lim for k, lim in limits(mode).items())
+        res, said = run_checked(mode, tmp_path, seed=seed, control=True)
+        assert res is not None and res["correct"], said
+        assert any(res["control"][k] > lim
+                   for k, lim in limits(mode).items()), said
 
 
 def token_altered(server, runtime):
@@ -95,6 +120,6 @@ def test_a_broken_timed_path_is_not_correct(mode, fault, tmp_path,
     make = {"token_altered": lambda: token_altered,
             "kv_left_unchanged": lambda: kv_left_unchanged(monkeypatch),
             "half_batch_left_out": lambda: half_batch_left_out(monkeypatch)}
-    res, _ = run_tiny(mode, tmp_path, seed=2**31 + 9, fault=make[fault](),
-                      limits=limits(mode), seconds=3.0)
-    assert not res["correct"], res["checks"]
+    res, said = run_checked(mode, tmp_path, seed=2**31 + 9,
+                            fault=make[fault]())
+    assert res is not None and not res["correct"], said

@@ -8,7 +8,7 @@ import pytest
 
 import bench_tiny
 from nlbench.harness import Profile, Recorder, Tok, flash_ms_per_tok
-from nlbench.spec import layer_reader
+from nlbench.spec import arch_module, layer_reader
 from nlbench.yardstick import p95, ufs40_read_seconds
 
 
@@ -30,9 +30,10 @@ def test_flash_ms_per_token_prices_each_read_call():
 def _view(cfg, mode, traffic, profile, rec):
     cell = types.SimpleNamespace(mode=mode, traffic=traffic)
     from nlbench.harness import View
-    return View(cell=cell, cfg=cfg, t0=0.0, t1=10.0, rec=rec,
-                window_steps=[0], decode_tokens=0, stats0={}, stats1={},
-                history=None, spans=None, profile=profile)
+    return View(cell=cell, cfg=cfg, arch=arch_module("opt"), t0=0.0,
+                t1=10.0, rec=rec, window_steps=[0], decode_tokens=0,
+                stats0={}, stats1={}, history=None, spans=None,
+                profile=profile)
 
 
 def test_paged_decode_roofline_hand_case():
@@ -51,6 +52,29 @@ def test_paged_decode_roofline_hand_case():
         _view(cfg, "resident", {"max_slots": 2}, prof, rec))
     nbytes = 2 * 117 * 32 * 64 * 2 + 4 * 9 + 4 * 2 + 2 * 2 * 32 * 64 * 4
     assert got == pytest.approx(100 * (nbytes / 3.35e12) / 10e-6)
+
+
+@pytest.mark.parametrize("mode", ["resident", "offload"])
+def test_model_mfu_hand_case(mode):
+    """opt-1.3b (d 2,048, 24 layers, d_ff 8,192, vocab 50,272), a window of
+    10 s: step 0 decodes two rows attending 100 and 17 positions and
+    prefills a prompt of 30; in offload two FFN calls serve unions of 500
+    and 300 neurons over 2 and 1 rows. Counted as the reader counted from
+    OPT's keys before the architecture module gave the counts."""
+    cfg = bench_tiny.load_json(bench_tiny.BENCH / "configs" / "opt-1.3b.json")
+    rec = Recorder()
+    rec.prompt = {1: [0] * 90, 2: [0] * 10, 3: [0] * 30}
+    rec.tokens = [Tok(1.0, 0, 1, 11, 5), Tok(1.0, 0, 2, 8, 5),
+                  Tok(1.0, 0, 3, 1, 5)]
+    rec.ffn = [(1.0, 0, 2, 700, 500), (1.0, 1, 1, 300, 300),
+               (11.0, 2, 1, 5, 5)]
+    got = layer_reader("model.mfu")(_view(cfg, mode, {}, None, rec))
+    d, f, L, V = 2048, 8192, 24, 50272
+    flops = 0.0 + L * (8 * d * d * 2 + 4 * d * 117) + 2 * d * V * 2
+    flops += L * 4 * d * f * 2 if mode == "resident" else \
+        4 * d * 500 * 2 + 4 * d * 300 * 1
+    flops += L * (8 * d * d * 30 + 2 * d * 30 * 30 + 4 * d * f * 30) + 2 * d * V
+    assert got == 100.0 * flops / (10.0 * 989e12)
 
 
 def test_p95_of_a_known_sample():
