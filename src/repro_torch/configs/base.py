@@ -22,6 +22,13 @@ class MoEConfig:
     capacity_factor: float = 1.25
     moe_period: int = 1        # every `period`-th layer is MoE (1 = all layers)
     router_aux_weight: float = 0.01
+    activation: str = "silu"   # the gate's activation: silu (SwiGLU) | relu (ReGLU)
+    # the router's input: "post_attention" (the FFN's own normed input) or
+    # "pre_attention" (the attention's normed input, routed before it runs)
+    router_input: str = "post_attention"
+    # True: every routed (token, expert) pair is computed, none dropped
+    # (`moe.moe_forward_dropless`); False: the capacity-bound dispatch
+    dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +56,12 @@ class ModelConfig:
     rope_theta: float = 1e6
     max_seq_len: int = 524_288
     sliding_window: int = 8_192   # SWA window used only by the long_500k decode path
+    # per-layer attention, cycled over the stack: "global" (RoPE, the
+    # window the caller passes), "window" (RoPE, `sliding_window`) or
+    # "nope" (no positional encoding, the window the caller passes);
+    # () is "global" everywhere
+    attn_layout: Tuple[str, ...] = ()
+    head_width: int = 0         # per-head width; 0: d_model // n_heads
     # -- family extensions --
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
@@ -72,7 +85,7 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_width or self.d_model // self.n_heads
 
     @property
     def is_encdec(self) -> bool:
@@ -95,6 +108,11 @@ class ModelConfig:
                 for i in range(self.n_layers)
             )
         return ("attn",) * self.n_layers
+
+    def attn_kinds(self) -> Tuple[str, ...]:
+        """Per-layer attention kind: 'global' | 'window' | 'nope'."""
+        pat = self.attn_layout or ("global",)
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
     def ffn_kinds(self) -> Tuple[str, ...]:
         """Per-layer FFN kind: 'dense' | 'moe' | 'none'."""

@@ -340,16 +340,18 @@ def _flash_gqa_attend_triangular(q, k, v, positions, window, chunk):
 
 def attention_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                       cfg: ModelConfig, causal: bool = True,
-                      window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
-                                                torch.Tensor]:
+                      window: int = 0, use_rope: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Self-attention over a full sequence (train / prefill / encoder).
-    Returns (output [B, T, d], roped k, v) so prefill can fill its cache.
+    Returns (output [B, T, d], roped k, v) so prefill can fill its cache
+    (k unroped where `use_rope` is False: a NoPE layer).
     Past `FLASH_SEQ_THRESHOLD` positions it attends through the chunked
     flash form, triangular when causal and `cfg.flash_triangular`, with
     `cfg.flash_q_chunk` / `flash_k_chunk`, as the reference routes."""
     q, k, v = _project_qkv(p, x, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if x.shape[1] > FLASH_SEQ_THRESHOLD:
         if causal and cfg.flash_triangular:
             out = flash_gqa_attend_triangular(q, k, v, positions,

@@ -22,10 +22,21 @@ Three choices keep the result a function of the inputs on every device:
 - The combine gathers each token's K expert outputs and sums them in k
   order, in place of the reference's scatter-add, so repeated runs give
   the same bits (no atomics).
+
+`MoEConfig.dropless` takes the other dispatch, `moe_forward_dropless`:
+every routed (token, expert) pair is computed once and none is dropped,
+so a row's output does not depend on its batch mates. The pairs are
+sorted by expert (stable, so each expert's rows keep token order) and run
+as grouped products, whose work scales with the pairs and not with
+n_experts x tokens: `torch._grouped_mm` on bf16 on the card (the group
+ends stay on the device: nothing waits on the host), a loop over the
+experts elsewhere (`grouped_mm_loop`, its twin). A router may run before
+the attention (`MoEConfig.router_input`): the stack then hands its
+routing to `moe_forward`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +45,7 @@ from repro_torch.distributed.dtensor import pin, whole
 from repro_torch.models.layers import _normal, apply_activation
 
 Params = Dict[str, torch.Tensor]
+Routing = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -83,16 +95,23 @@ def _expert_ffn(p: Params, xe: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     """xe: [E, C, d] -> [E, C, d], each expert's gated silu FFN."""
     dt = cfg.dtype()
-    h = apply_activation(torch.bmm(xe, p["w_gate"].to(dt)), "silu")
+    h = apply_activation(torch.bmm(xe, p["w_gate"].to(dt)),
+                         cfg.moe.activation)
     h = h * torch.bmm(xe, p["w_up"].to(dt))
     return torch.bmm(h, p["w_down"].to(dt))
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                routing: Optional[Routing] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32)."""
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32). `routing` is
+    `route`'s result where the router has already run (on the attention's
+    input); else the router reads x. A dropless config takes
+    `moe_forward_dropless`."""
     assert cfg.moe is not None
     m = cfg.moe
+    if m.dropless:
+        return moe_forward_dropless(p, x, cfg, routing)
     B, S, d = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
@@ -101,7 +120,7 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     # (the routing's backward may shard it over the model axis too, which
     # the view back to [B, S, d] cannot take)
     xt = pin(x.reshape(T, d))
-    probs, gate_w, sel = route(p, xt, cfg)
+    probs, gate_w, sel = route(p, xt, cfg) if routing is None else routing
     aux = _aux_loss(probs, sel, m)
     # the dispatch's bookkeeping below (ranks, slots, an in-place scatter
     # into a fresh tensor) has no DTensor strategy: under sharding it runs
@@ -139,6 +158,78 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     contrib = ye.reshape(E * C, d)[dest] * w[:, None]
     y = contrib.reshape(T, K, d).sum(dim=1)
     return y.reshape(B, S, d), aux.float()
+
+
+def expert_order(sel: torch.Tensor, n_experts: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sel [T, K] -> (order [T*K]: the (token, k) pairs sorted by expert,
+    token-major within an expert; ends [E] int32: where each expert's
+    pairs end in that order). No host read."""
+    sorted_e, order = torch.sort(sel.reshape(-1), stable=True)
+    iota = torch.arange(n_experts, device=sel.device, dtype=sorted_e.dtype)
+    ends = torch.searchsorted(sorted_e, iota, right=True).to(torch.int32)
+    return order, ends
+
+
+def grouped_mm_loop(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+                    ) -> torch.Tensor:
+    """x [N, a] (rows grouped by expert, `ends` [E] where each group ends),
+    w [E, a, b] -> [N, b]: each group's rows by its expert's matrix, one
+    product an expert that has rows (reads `ends` on the host)."""
+    out = x.new_empty((x.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        if end > start:
+            out[start:end] = x[start:end] @ w[e]
+        start = end
+    return out
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """`grouped_mm_loop`'s product: `torch._grouped_mm` for bf16 on the
+    card (CUTLASS's grouped GEMM; the ends stay on the device), the loop
+    elsewhere."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=ends)
+    return grouped_mm_loop(x, w, ends)
+
+
+def moe_forward_dropless(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                         routing: Optional[Routing] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32: 0 where no
+    gradient is recorded), every routed pair computed: the pairs sorted by
+    expert, each expert's gated FFN on its own rows (grouped products), the
+    outputs put back in pair order and each token's K outputs summed in k
+    order with its gate weights."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, K = B * S, m.top_k
+    xt = x.reshape(T, d)
+    probs, gate_w, sel = route(p, xt, cfg) if routing is None else routing
+    # the auxiliary loss trains the router alone: where no gradient is
+    # recorded (serving) it is not computed
+    aux = (_aux_loss(probs, sel, m) if torch.is_grad_enabled()
+           else probs.new_zeros(()))
+    order, ends = expert_order(sel, m.n_experts)
+    dt = cfg.dtype()
+    xs = xt[order // K]                                            # [T*K, d]
+    h = apply_activation(grouped_mm(xs, p["w_gate"].to(dt), ends),
+                         m.activation)
+    h = h * grouped_mm(xs, p["w_up"].to(dt), ends)
+    ys = grouped_mm(h, p["w_down"].to(dt), ends)
+    y_pairs = torch.empty_like(ys).index_copy_(0, order, ys)
+    w = gate_w.reshape(-1).to(ys.dtype)
+    y = (y_pairs * w[:, None]).reshape(T, K, d).sum(dim=1)
+    return y.reshape(B, S, d), aux.float()
+
+
+def distinct_experts(sel: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many distinct experts `sel` [T, K] routes to, a device scalar
+    (no host read)."""
+    hit = torch.zeros(n_experts, dtype=torch.int32, device=sel.device)
+    return hit.index_fill_(0, sel.reshape(-1), 1).sum()
 
 
 def moe_forward_dense_einsum(p: Params, x: torch.Tensor, cfg: ModelConfig

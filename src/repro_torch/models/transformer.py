@@ -53,15 +53,32 @@ Params = Dict[str, Any]
 
 
 def stack_period(cfg: ModelConfig) -> int:
-    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    kinds, ffns, attns = cfg.layer_kinds(), cfg.ffn_kinds(), cfg.attn_kinds()
     L = cfg.n_layers
     for P in range(1, L + 1):
         if L % P:
             continue
-        if all(kinds[i] == kinds[i % P] for i in range(L)) and \
-           all(ffns[i] == ffns[i % P] for i in range(L)):
+        if all(kinds[i] == kinds[i % P] and ffns[i] == ffns[i % P]
+               and attns[i] == attns[i % P] for i in range(L)):
             return P
     return L
+
+
+def layer_attention(cfg: ModelConfig, attn_kind: str, window: int
+                    ) -> Tuple[int, bool]:
+    """(window, RoPE on) of an attention sublayer of `cfg.attn_kinds()`
+    kind `attn_kind`, where the caller asks for `window` (0: none): a
+    "window" layer keeps `cfg.sliding_window`, a "nope" layer takes no
+    RoPE."""
+    if attn_kind == "window":
+        return cfg.sliding_window, True
+    return window, attn_kind != "nope"
+
+
+def routes_early(cfg: ModelConfig, ffn: str) -> bool:
+    """Whether a sublayer's MoE router reads the attention's input (and
+    runs before the attention) rather than the FFN's."""
+    return ffn == "moe" and cfg.moe.router_input == "pre_attention"
 
 
 # -- init ---------------------------------------------------------------------
@@ -117,15 +134,26 @@ class StackOutput(NamedTuple):
 
 
 def _ffn_seq(sp: Params, h: torch.Tensor, cfg: ModelConfig, ffn: str,
-             capture: bool = False):
+             capture: bool = False, routing=None):
     """A sublayer's FFN over a sequence: (y, pre-activation if `capture`
-    on a dense FFN, the normed input, MoE aux loss or None)."""
+    on a dense FFN, the normed input, MoE aux loss or None). `routing`:
+    a MoE router's result taken before the attention."""
     normed2 = apply_norm(sp["norm2"], h, cfg)
     if ffn == "dense":
         y, pre = ffn_forward(sp["ffn"], normed2, cfg, capture=capture)
         return y, pre, normed2, None
-    y, aux = moe_lib.moe_forward(sp["ffn"], normed2, cfg)
+    y, aux = moe_lib.moe_forward(sp["ffn"], normed2, cfg, routing)
     return y, None, normed2, aux
+
+
+def _early_routing(sp: Params, normed: torch.Tensor, cfg: ModelConfig,
+                   ffn: str):
+    """The MoE routing of a sublayer whose router reads the attention's
+    normed input [B, T, d] (None for any other sublayer)."""
+    if not routes_early(cfg, ffn):
+        return None
+    return moe_lib.route(sp["ffn"], normed.reshape(-1, normed.shape[-1]),
+                         cfg)
 
 
 def stack_forward(stack: List[Params], x: torch.Tensor,
@@ -135,7 +163,7 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
     rematerialised in the backward pass when `cfg.remat` (the reference
     checkpoints its scanned group function)."""
     P = stack_period(cfg)
-    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    kinds, ffns, attns = cfg.layer_kinds(), cfg.ffn_kinds(), cfg.attn_kinds()
 
     def group_fn(h, group):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -144,15 +172,19 @@ def stack_forward(stack: List[Params], x: torch.Tensor,
         for j in range(P):
             sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
             normed = apply_norm(sp["norm1"], h, cfg)
+            routing = _early_routing(sp, normed, cfg, ffn)
             if kind == "attn":
+                w, use_rope = layer_attention(cfg, attns[j], window)
                 mix, _, _ = attention_forward(sp["mixer"], normed, positions,
-                                              cfg, window=window)
+                                              cfg, window=w,
+                                              use_rope=use_rope)
             else:
                 mix = _SSM[kind].forward(sp["mixer"], normed, cfg)
             h = h + mix
             if ffn != "none":
                 y, pre, normed2, a = _ffn_seq(sp, h, cfg, ffn,
-                                              capture=capture_activations)
+                                              capture=capture_activations,
+                                              routing=routing)
                 if a is not None:
                     aux = aux + a
                 elif capture_activations:
@@ -187,24 +219,26 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     """Per group, {"sub_j": cache}: for an attention sublayer a KVCache
     [batch, max_len, KV, hd], the int8 `QuantKVCache` when `cfg.kv_quant`,
     or with `swa` a float `SWACache` ring of `cfg.sliding_window` slots a
-    row (whatever `max_len` and `kv_quant` say, as in the reference); for
-    an SSM sublayer its zero recurrent state (Mamba's conv inputs in
-    `dtype`, default the compute dtype; every other leaf float32)."""
+    row (whatever `max_len` and `kv_quant` say, as in the reference), as
+    a "window" sublayer of `cfg.attn_layout` always has; for an SSM
+    sublayer its zero recurrent state (Mamba's conv inputs in `dtype`,
+    default the compute dtype; every other leaf float32)."""
     P = stack_period(cfg)
     G = cfg.n_layers // P
-    kinds = cfg.layer_kinds()
+    kinds, attns = cfg.layer_kinds(), cfg.attn_kinds()
 
-    def one(kind):
+    def one(kind, attn):
         if kind != "attn":
             return _SSM[kind].init_state(batch, cfg, device,
                                          dtype or cfg.dtype())
-        if swa:
+        if swa or attn == "window":
             return init_swa_cache(batch, cfg, device, dtype)
         if cfg.kv_quant:
             return init_quant_kv_cache(batch, max_len, cfg, device)
         return init_kv_cache(batch, max_len, cfg, device, dtype)
 
-    return [{f"sub_{j}": one(kinds[j]) for j in range(P)} for _ in range(G)]
+    return [{f"sub_{j}": one(kinds[j], attns[j]) for j in range(P)}
+            for _ in range(G)]
 
 
 def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -213,11 +247,14 @@ def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     page_size, KV, hd]} (the trailing null page absorbs inactive-slot
     writes), int8 with scales when `cfg.kv_quant`. One set of `num_pages`
     logical pages serves every layer: a page-table entry indexes all
-    arenas at once, so allocator accounting stays per request.
+    arenas at once, so allocator accounting stays per request. A "window"
+    sublayer of `cfg.attn_layout` has no arena (its group's dict leaves it
+    out): it keeps a ring a slot (`init_ring_stack_cache`).
 
     Raises ValueError for stacks the paged layout cannot represent (SSM
-    sublayers keep per-slot recurrent state, not positional KV) — no silent
-    fallback to a contiguous cache."""
+    sublayers keep per-slot recurrent state, not positional KV; a stack
+    windowed everywhere has nothing to page) — no silent fallback to a
+    contiguous cache."""
     if num_pages < 1 or page_size < 1:
         raise ValueError(f"paged cache needs num_pages >= 1 and page_size >= 1, "
                          f"got num_pages={num_pages} page_size={page_size}")
@@ -230,13 +267,32 @@ def init_paged_stack_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             f"represent)")
     P = stack_period(cfg)
     G = cfg.n_layers // P
+    attns = cfg.attn_kinds()
+    if all(a == "window" for a in attns):
+        raise ValueError(
+            f"paged KV cache needs a layer that is not windowed; every "
+            f"layer of {cfg.arch_id!r} keeps a sliding-window ring")
 
     def one():
         if cfg.kv_quant:
             return init_paged_quant_kv_cache(num_pages, page_size, cfg, device)
         return init_paged_kv_cache(num_pages, page_size, cfg, device, dtype)
 
-    return [{f"sub_{j}": one() for j in range(P)} for _ in range(G)]
+    return [{f"sub_{j}": one() for j in range(P) if attns[j] != "window"}
+            for _ in range(G)]
+
+
+def init_ring_stack_cache(cfg: ModelConfig, batch: int, device,
+                          dtype=None) -> List[Params]:
+    """The rings a paged stack keeps beside its arenas: per group,
+    {"sub_j": SWACache [batch, cfg.sliding_window]} for each "window"
+    sublayer of `cfg.attn_layout` (empty dicts for a stack without
+    any)."""
+    P = stack_period(cfg)
+    G = cfg.n_layers // P
+    attns = cfg.attn_kinds()
+    return [{f"sub_{j}": init_swa_cache(batch, cfg, device, dtype)
+             for j in range(P) if attns[j] == "window"} for _ in range(G)]
 
 
 # -- prefill ----------------------------------------------------------------------
@@ -248,16 +304,18 @@ def stack_prefill(stack: List[Params], x: torch.Tensor,
     """Dense prefill over the prompt; fills `cache` in place from slot 0
     (an SSM sublayer's entry becomes its state after the prompt)."""
     P = stack_period(cfg)
-    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    kinds, ffns, attns = cfg.layer_kinds(), cfg.ffn_kinds(), cfg.attn_kinds()
     h = x
     for group, group_cache, j in ((g, c, j) for g, c in zip(stack, cache)
                                   for j in range(P)):
         sp, kind, ffn = group[f"sub_{j}"], kinds[j], ffns[j]
         normed = apply_norm(sp["norm1"], h, cfg)
+        routing = _early_routing(sp, normed, cfg, ffn)
         cj = group_cache[f"sub_{j}"]
         if kind == "attn":
+            w, use_rope = layer_attention(cfg, attns[j], window)
             mix, k, v = attention_forward(sp["mixer"], normed, positions, cfg,
-                                          window=window)
+                                          window=w, use_rope=use_rope)
             if isinstance(cj, SWACache):
                 swa_write(cj, k, v, positions)
             else:
@@ -268,7 +326,7 @@ def stack_prefill(stack: List[Params], x: torch.Tensor,
                 sp["mixer"], normed, cfg, return_state=True)
         h = h + mix
         if ffn != "none":
-            h = h + _ffn_seq(sp, h, cfg, ffn)[0]
+            h = h + _ffn_seq(sp, h, cfg, ffn, routing=routing)[0]
     return h, cache
 
 
@@ -284,9 +342,6 @@ def _decode_positions(position, B: int, device) -> torch.Tensor:
     return pos.reshape(1, 1).expand(B, 1)
 
 
-_SSM_STATES = (ssm.MambaState, ssm.MLSTMState, ssm.SLSTMState)
-
-
 class PagedStep(NamedTuple):
     """What every paged attention sublayer of one decode step shares,
     computed once per step: the page tables, the per-row query positions,
@@ -296,21 +351,14 @@ class PagedStep(NamedTuple):
     targets: Tuple[torch.Tensor, torch.Tensor]
 
 
-def _first_attn_cache(cache_groups: List[Params]) -> Any:
-    """The first attention sublayer's cache (None for an attention-free
-    stack): its type says whether the step is paged, ringed or
-    contiguous."""
-    return next((c for g in cache_groups for c in g.values()
-                 if not isinstance(c, _SSM_STATES)), None)
-
-
 def _paged_step(position, page_tables: Optional[torch.Tensor],
                 cache_groups: List[Params]) -> Optional[PagedStep]:
-    """The step's `PagedStep` when its caches are paged arenas (None for
-    contiguous caches). Raises ValueError for a paged cache without page
-    tables or per-slot positions."""
-    first = _first_attn_cache(cache_groups)
-    if not isinstance(first, (PagedKVCache, PagedQuantKVCache)):
+    """The step's `PagedStep` when its caches hold paged arenas (None for
+    contiguous caches and rings alone). Raises ValueError for a paged
+    cache without page tables or per-slot positions."""
+    first = next((c for g in cache_groups for c in g.values()
+                  if isinstance(c, (PagedKVCache, PagedQuantKVCache))), None)
+    if first is None:
         return None
     if page_tables is None:
         raise ValueError("paged KV cache decode needs page_tables")
@@ -327,9 +375,14 @@ def _paged_step(position, page_tables: Optional[torch.Tensor],
 def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
                   pos_arr: torch.Tensor, position, cfg: ModelConfig,
                   kind: str = "attn", paged: Optional[PagedStep] = None,
-                  window: int = 0, swa_cur: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Any]:
-    """One sublayer's mixer for a single decode token: (mix [B,1,d], cache).
+                  window: int = 0, swa_cur: Optional[torch.Tensor] = None,
+                  use_rope: bool = True, route_layer: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Any, Any]:
+    """One sublayer's mixer for a single decode token: (mix [B,1,d], cache,
+    routing). With `route_layer` (the sublayer's MoE router reads the
+    attention's input) routing is `moe.route` of the normed input, run
+    before the attention in a `route` span; else None. No RoPE where
+    `use_rope` is False (a NoPE layer).
 
     `position` is a shared scalar or a per-slot [B] vector; the contiguous
     cache writes pick the matching (slice vs per-row scatter) variant. A
@@ -341,12 +394,17 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
     card). An SSM sublayer (`kind` other than "attn") takes one step of
     its recurrence from its state `cj` instead."""
     normed = apply_norm(sp["norm1"], h, cfg)
+    routing = None
+    if route_layer is not None:
+        with get_tracer().span("route", layer=route_layer):
+            routing = moe_lib.route(sp["ffn"], normed[:, 0], cfg)
     if kind != "attn":
         y, cj = _SSM[kind].decode_step(sp["mixer"], normed[:, 0], cj, cfg)
-        return y[:, None], cj
+        return y[:, None], cj, routing
     q, k, v = _project_qkv(sp["mixer"], normed, normed, cfg)
-    q = rope(q, pos_arr, cfg.rope_theta)
-    k = rope(k, pos_arr, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, pos_arr, cfg.rope_theta)
+        k = rope(k, pos_arr, cfg.rope_theta)
     per_row = torch.as_tensor(position).ndim == 1
     if isinstance(cj, (PagedKVCache, PagedQuantKVCache)):
         # imported here: the kernels' plain versions import this package
@@ -380,7 +438,7 @@ def _mixer_decode(sp: Params, cj: Any, h: torch.Tensor,
         mix = attend_full_cache(q, cj, pos_arr)
     else:
         raise ValueError(f"unsupported cache type {type(cj).__name__}")
-    return promoted_matmul(mix, sp["mixer"]["wo"]), cj
+    return promoted_matmul(mix, sp["mixer"]["wo"]), cj, routing
 
 
 FFNOverride = Callable[[int, torch.Tensor], torch.Tensor]
@@ -403,9 +461,14 @@ def stack_decode_step_layerwise(
     flash bundle payloads instead of the resident weights. Without it a
     `cfg.serve_sparse` model takes the predictor's segment top-k FFN
     (`sparse_ffn_decode`), else the dense FFN; a MoE sublayer always runs
-    `moe_forward` over the whole batch (its capacity counts every row).
-    SSM sublayers step their states. `window` is the
-    sliding-window rings' attention window (0: `cfg.sliding_window`).
+    `moe_forward` over the whole batch (its capacity counts every row), in
+    a `moe` span (layer, rows), routed from the attention's input where
+    the config says so (a `route` span inside `mixer`); while tracing, a
+    dropless MoE keeps its count of distinct experts, on the device, in
+    the tracer (`keep("moe_experts", ...)`, a layer each). SSM sublayers step their states. `window`
+    is the sliding-window rings' attention window (0:
+    `cfg.sliding_window`); a "window" sublayer of `cfg.attn_layout` keeps
+    its own, a "nope" one takes no RoPE.
     `dense_layer_idx` counts dense FFN sublayers in (group, sublayer) order,
     the same order `stack_forward(capture_activations=True)` stacks
     `ffn_pre_act`, so calibration traces and serving agree on layer ids.
@@ -418,25 +481,37 @@ def stack_decode_step_layerwise(
     paged = _paged_step(position, page_tables, cache_groups)
     # one [B] int32 copy of the positions per step, for every ring
     swa_cur = (pos_arr[:, 0].to(torch.int32)
-               if isinstance(_first_attn_cache(cache_groups), SWACache)
+               if any(isinstance(c, SWACache) for g in cache_groups
+                      for c in g.values())
                else None)
     h = x
     dense_idx = 0
     P = stack_period(cfg)
-    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    kinds, ffns, attns = cfg.layer_kinds(), cfg.ffn_kinds(), cfg.attn_kinds()
     tr = get_tracer()
     for g, (group_params, group_cache) in enumerate(zip(param_groups,
                                                        cache_groups)):
         for j in range(P):
             sp = group_params[f"sub_{j}"]
-            with tr.span("mixer", layer=g * P + j):
-                mix, group_cache[f"sub_{j}"] = _mixer_decode(
+            layer = g * P + j
+            w, use_rope = layer_attention(cfg, attns[j], window)
+            with tr.span("mixer", layer=layer):
+                mix, group_cache[f"sub_{j}"], routing = _mixer_decode(
                     sp, group_cache[f"sub_{j}"], h, pos_arr, position, cfg,
-                    kinds[j], paged, window, swa_cur)
+                    kinds[j], paged, w, swa_cur, use_rope,
+                    layer if routes_early(cfg, ffns[j]) else None)
                 h = h + mix
             if ffns[j] == "moe":
-                h = h + moe_lib.moe_forward(
-                    sp["ffn"], apply_norm(sp["norm2"], h, cfg), cfg)[0]
+                with tr.span("moe", layer=layer, rows=B):
+                    normed2 = apply_norm(sp["norm2"], h, cfg)
+                    if cfg.moe.dropless and tr.enabled:
+                        if routing is None:
+                            routing = moe_lib.route(sp["ffn"], normed2[:, 0],
+                                                    cfg)
+                        tr.keep("moe_experts", moe_lib.distinct_experts(
+                            routing[2], cfg.moe.n_experts))
+                    h = h + moe_lib.moe_forward(sp["ffn"], normed2, cfg,
+                                                routing)[0]
             elif ffns[j] == "dense":
                 normed2 = apply_norm(sp["norm2"], h, cfg)
                 if ffn_override is not None:

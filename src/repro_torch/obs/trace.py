@@ -138,6 +138,8 @@ class Tracer:
         self._tracks: Dict[str, int] = {}
         self._local = threading.local()
         self.pid = os.getpid()
+        # name -> values kept until taken (`keep` / `take`)
+        self._kept: Dict[str, List[Any]] = {}
 
     # -- clock ---------------------------------------------------------------
 
@@ -209,6 +211,16 @@ class Tracer:
     def counter(self, name: str, **values: float) -> None:
         """Record a point on a counter track (stacked area chart in Perfetto)."""
         self._emit(self.now(), None, "C", name, values)
+
+    def keep(self, name: str, value: Any) -> None:
+        """Hold `value` under `name` until `take(name)`: a value the traced
+        code has not read yet (a device tensor, read after the step's own
+        sync). One thread keeps and takes a name."""
+        self._kept.setdefault(name, []).append(value)
+
+    def take(self, name: str) -> List[Any]:
+        """The values kept under `name` since the last take, oldest first."""
+        return self._kept.pop(name, [])
 
     # -- introspection -------------------------------------------------------
 
@@ -328,6 +340,12 @@ class NullTracer:
 
     def counter(self, *a: Any, **kw: Any) -> None:
         pass
+
+    def keep(self, *a: Any, **kw: Any) -> None:
+        pass
+
+    def take(self, name: str) -> List[Any]:
+        return []
 
     def events(self) -> List[dict]:
         return []

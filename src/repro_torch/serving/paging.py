@@ -50,6 +50,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.kvcache import SWACache
 from repro_torch.obs import get_tracer
 
 
@@ -111,18 +112,28 @@ class PageTable:
         return len(self.pages)
 
 
+def _arenas(group: Dict[str, Any]) -> List[Tuple[str, Any]]:
+    """A group's (sublayer, arena) pairs, without the rings a server keeps
+    beside them."""
+    return [(sub, c) for sub, c in group.items()
+            if not isinstance(c, SWACache)]
+
+
 class PagePool:
     """Owner of all paged KV memory: arenas + allocator + prefix sharing.
 
     `cache_groups` is a list of G per-group dicts `{sub_j: arena}` on
     `device` (default cuda; pass "cpu" to run on the CPU), the layout the
-    port's decode loop takes.
+    port's decode loop takes. A server whose stack has "window" layers
+    (`cfg.attn_layout`) adds their rings, `SWACache` rows a slot, to these
+    dicts; the pool writes and copies its arenas only.
 
     Construction raises `ValueError` — never silently degrades — for layouts
     pages cannot represent: non-attention sublayers (SSM state is per-slot,
-    not positional) are rejected by `init_paged_stack_cache`, sliding-window
-    caches by the server; the int8 layout is fully supported (per-page-row
-    scales ride in the arenas).
+    not positional) and stacks windowed everywhere are rejected by
+    `init_paged_stack_cache`, `swa` rings by the server; the int8 layout is
+    fully supported (per-page-row scales ride in the arenas). A stack with
+    some "window" layers has arenas for the others only.
     """
 
     def __init__(self, cfg: ModelConfig, *, num_pages: int, page_size: int,
@@ -360,7 +371,7 @@ class PagePool:
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one physical page across every layer's arena (CoW)."""
         for group in self.cache_groups:
-            for arena in group.values():
+            for _, arena in _arenas(group):
                 for leaf in arena:
                     leaf[dst].copy_(leaf[src])
 
@@ -409,7 +420,7 @@ class PagePool:
             tail = table.pages[n_full] if first <= n_full < n_pages else None
             launches = 0
             for group, small_group in zip(self.cache_groups, small_cache):
-                for sub, arena in group.items():
+                for sub, arena in _arenas(group):
                     for leaf, s in zip(arena, small_group[sub]):
                         rows = s[0, first * P:T]
                         if rows.dtype != leaf.dtype:

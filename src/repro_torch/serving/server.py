@@ -68,8 +68,10 @@ from repro_torch.core.predictor import PredictorParams, predict_mask
 from repro_torch.device import DeviceLike, check_same_device, resolve_device
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        promoted_matmul, unembed)
+from repro_torch.models.kvcache import SWACache
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import stack_decode_step_layerwise
+from repro_torch.models.transformer import (init_ring_stack_cache,
+                                            stack_decode_step_layerwise)
 from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.obs import request_timeline as _build_request_timeline
 from repro_torch.serving.engine import (OffloadedFFNRuntime, Request, Result,
@@ -198,7 +200,11 @@ class InferenceServer:
 
     Paged KV: set BOTH `page_size` and `num_pages` to replace the per-slot
     contiguous caches with a shared page arena (`serving/paging.py`) —
-    attention-only decoder stacks, no `swa`. `page_overcommit=False`
+    attention-only decoder stacks, no `swa`. A stack whose
+    `cfg.attn_layout` has "window" layers keeps, beside the arenas of its
+    other layers, a ring a slot for each of them (`cfg.sliding_window`
+    positions) in the pool's group dicts, filled whole from the prefill at
+    admission. `page_overcommit=False`
     (strict) admits only requests whose worst-case page need is covered, so
     decode growth never runs dry; True gates on the immediate prompt need
     only, trading possible page-pressure preemption for higher admitted
@@ -326,6 +332,9 @@ class InferenceServer:
         self._pool: Optional[PagePool] = None
         self._tables: Dict[int, Any] = {}
         self._cache = None
+        # a paged stack with window layers keeps their rings, a row a slot,
+        # in the pool's group dicts beside the other layers' arenas
+        self._ringed = page_size is not None and "window" in cfg.attn_kinds()
         if page_size is not None:
             # PagePool/init_paged_stack_cache validate page geometry and
             # reject non-attention (SSM) sublayers with a ValueError — paged
@@ -334,6 +343,11 @@ class InferenceServer:
                                   page_size=page_size, max_len=max_len,
                                   overcommit=page_overcommit,
                                   device=self.device)
+            if self._ringed:
+                for group, rings in zip(self._pool.cache_groups,
+                                        init_ring_stack_cache(
+                                            cfg, max_slots, self.device)):
+                    group.update(rings)
         else:
             self._cache = model.init_cache(max_slots, max_len, swa=swa)
         if mode == "offload":
@@ -781,6 +795,8 @@ class InferenceServer:
                 # any failure below releases the pages via the _retire path
                 self._pool.write_prompt(table, small)
                 self._pool.register_prefixes(prompt_np, table)
+                if self._ringed:
+                    self._write_slot(slot, small, rings_only=True)
             else:
                 self._write_slot(slot, small)
             self._slot_handle[slot] = handle
@@ -798,18 +814,23 @@ class InferenceServer:
             return 0
         return 1
 
-    def _write_slot(self, slot: int, small_cache: Any) -> None:
-        """Copy a freshly prefilled B=1 cache into row `slot` of the pool,
-        in place: every leaf of the row, a ring's positions and every leaf
-        of an SSM sublayer's recurrent state included, so a reused slot
-        keeps nothing of its last request. Stale KV beyond the
+    def _write_slot(self, slot: int, small_cache: Any,
+                    rings_only: bool = False) -> None:
+        """Copy a freshly prefilled B=1 cache into row `slot` of the
+        per-slot caches (`rings_only`: of a paged server's rings, in the
+        pool's groups), in place: every leaf of the row, a ring's positions
+        and every leaf of an SSM sublayer's recurrent state included, so a
+        reused slot keeps nothing of its last request. Stale KV beyond the
         new prompt is harmless: decode writes a position's KV before
         attending to it, and causal masking hides everything past the
         current position. Runs in inference mode, where decode replaces
         an SSM state by tensors made in it."""
         with torch.inference_mode():
-            for big_g, small_g in zip(self._cache, small_cache):
+            groups = self._pool.cache_groups if rings_only else self._cache
+            for big_g, small_g in zip(groups, small_cache):
                 for name, big in big_g.items():
+                    if rings_only and not isinstance(big, SWACache):
+                        continue
                     for big_leaf, small_leaf in zip(big, small_g[name]):
                         big_leaf[slot].copy_(small_leaf[0])
 
@@ -1021,9 +1042,17 @@ class InferenceServer:
 
     @staticmethod
     def _logits_rows(logits: torch.Tensor) -> np.ndarray:
-        """The last position's logits on the host: the end-of-token sync."""
-        with get_tracer().span("logits_sync"):
-            return logits[:, 0].float().cpu().numpy()
+        """The last position's logits on the host: the end-of-token sync.
+        While tracing, the counts of distinct experts the step's MoE layers
+        kept on the device, read after it, go into a `moe_experts` instant
+        (experts: one count a layer)."""
+        tr = get_tracer()
+        with tr.span("logits_sync"):
+            rows = logits[:, 0].float().cpu().numpy()
+        experts = tr.take("moe_experts")
+        if experts:
+            tr.instant("moe_experts", experts=torch.stack(experts).tolist())
+        return rows
 
     def _decode_resident(self):
         t0 = time.perf_counter()

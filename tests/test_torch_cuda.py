@@ -27,6 +27,7 @@ before the down product, and one within float32 error of a rounding tie
 may round either way under another summation order (that slack capped
 at 2e-3 an output).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -1756,3 +1757,84 @@ def test_chunked_scan_grads_on_card(dev):
         n_null += null
         assert float((a - b).norm()) <= 1e-6 * (total if null else norm)
     assert n_null <= cfg.n_layers     # the input gates' biases, one a layer
+
+
+# -- SmallThinker's shapes: G = 7 at width 128, rings of 4,096, pages past 8k,
+# -- and the dropless experts' grouped products ------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_kernel_at_smallthinker_shape_on_card(dev, dtype):
+    """28 query heads over 4 KV heads of 128 (G = 7), rings of 4,096 slots
+    at a window of 4,096: rows wrapped once and twice, one just full, one
+    a slot short of full, one short, as the doc32 cell's window layers
+    hold them."""
+    curs = [4096 + 1234, 10239, 4095, 4094, 17, 8191]
+    q, k, v, pos, cur = _swa_inputs(dev, 41, len(curs), 28, 4, 128, 4096,
+                                    curs, dtype)
+    ops.reset_counts()
+    out = ops.swa_decode_attention(q, k, v, pos, cur, window=4096)
+    assert ops.counts["swa_decode"].launches == 1
+    torch.cuda.synchronize()
+    ref = swa_decode_attention_plain(q, k, v, pos, cur, window=4096)
+    torch.testing.assert_close(out.float(), ref.float(), **SWA_TOL[dtype])
+    assert torch.equal(out, ops.swa_decode_attention(q, k, v, pos, cur,
+                                                     window=4096))
+
+
+@pytest.mark.parametrize("arena", ["f32", "bf16"])
+def test_paged_kernel_at_smallthinker_shape_on_card(dev, arena):
+    """28 query heads over 4 KV heads of 128 (G = 7), page 16, rows past
+    8,192 positions up to the cell's 10,240, and a short one."""
+    args = _paged_inputs(dev, 43, B=4, KV=4, G=7, hd=128, page_size=16,
+                         cur=[8200, 10239, 3, 9000], arena=arena)
+    ops.reset_counts()
+    out = ops.paged_decode_attention(*args)
+    assert ops.counts["paged_decode"].launches == 1
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_plain(*args)
+    tol = PAGED_BF16_TOL if arena == "bf16" else PAGED_TOL
+    torch.testing.assert_close(out, ref, **tol)
+    if arena == "bf16":
+        torch.testing.assert_close(out, _f32_math(*args), **PAGED_TOL)
+    assert torch.equal(out, ops.paged_decode_attention(*args))
+
+
+def test_dropless_experts_on_card_without_host_sync(dev):
+    """The dropless MoE at SmallThinker's widths (64 experts of 768, top 6,
+    d 2,560) on 32 decode rows in bf16: `torch._grouped_mm` against the
+    per-expert loop in float32 on the same bf16 values (2e-2: the grouped
+    product rounds its bf16 output once, the loop does not), the same
+    bits on a second call, and no host sync anywhere in it (CUDA's sync
+    debug mode raises on one)."""
+    from repro_torch.configs import smallthinker_21b_a3b as st
+    from repro_torch.models import moe as moe_lib
+    cfg = dataclasses.replace(st.CONFIG, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(5)
+    d, f, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    p = {"router": torch.randn(d, E, generator=g, device=dev) * d ** -0.5,
+         "w_gate": torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5,
+         "w_up": torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5,
+         "w_down": torch.randn(E, f, d, generator=g, device=dev) * f ** -0.5}
+    p = {k: t.bfloat16() for k, t in p.items()}
+    x = torch.randn(32, 1, d, generator=g, device=dev).bfloat16()
+    routing = moe_lib.route(p, x[:, 0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = moe_lib.moe_forward(p, x, cfg, routing)
+        y2, _ = moe_lib.moe_forward(p, x, cfg, routing)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y, y2)
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    pf = {k: t.float() for k, t in p.items()}
+    ref, _ = moe_lib.moe_forward(pf, x.float(), f32, routing)
+    torch.testing.assert_close(y.float(), ref, rtol=2e-2, atol=2e-2)
+    order, ends = moe_lib.expert_order(routing[2], E)
+    xs = x[:, 0][order // cfg.moe.top_k]
+    torch.testing.assert_close(
+        moe_lib.grouped_mm(xs, p["w_up"], ends).float(),
+        moe_lib.grouped_mm_loop(xs.float(), pf["w_up"], ends),
+        rtol=2e-2, atol=2e-2)

@@ -178,13 +178,13 @@ def test_server_tokens_match_reference(arch, overrides, server_kw,
     overflows = []
     real = moe_lib.moe_forward
 
-    def counting(p, x, cfg):
+    def counting(p, x, cfg, *args):
         # an expert given more rows than its capacity overflows
         _, _, sel = moe_lib.route(p, x.reshape(-1, x.shape[-1]), cfg)
         C = moe_lib._capacity(sel.shape[0], cfg.moe)
         counts = torch.bincount(sel.reshape(-1), minlength=cfg.moe.n_experts)
         overflows.append(int((counts > C).sum()))
-        return real(p, x, cfg)
+        return real(p, x, cfg, *args)
 
     monkeypatch.setattr(transformer.moe_lib, "moe_forward", counting)
     ref = _serve(JInferenceServer, JRequest, jmodel, jparams, n_requests,
